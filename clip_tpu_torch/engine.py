@@ -8,7 +8,9 @@ default (``device="cuda:0"``) and raises if no card is present; pass
 
 As in the JAX engine, batches are padded up to power-of-two buckets, text is
 padded to the model's full context, and a quantized checkpoint's layer
-weights are re-quantized to per-channel int8 at load (the W8A8 route).
+weights are re-quantized to per-channel int8 at load (the W8A8 route); an
+f16 or f32 checkpoint keeps its layer weights dense in the compute dtype
+(the dense route).  ``route`` says which one a checkpoint took.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from .gguf import GGUFReader
 from .gguf import constants as C
 from .models.config import ClipConfig
 from .models.params import load_params
+from .models.transformer import route
 from .models.text import encode_text
 from .models.vision import encode_image
 from .preprocess import load_image, preprocess_batch
@@ -89,7 +92,13 @@ class ClipEngine:
         ft = C.FTYPE_TO_NAME.get(self.config.ftype, "?")
         _log(verbosity, 1, "model: %s (%s) on %s", self.config.name or self.model_path, ft,
              self.device)
-        self.params = load_params(self.reader, self.config, device=self.device)
+        self.params = load_params(self.reader, self.config, device=self.device,
+                                  dtype=self.compute_dtype)
+        routes = {route(self.params[t]["layers"]) for t in ("text", "vision")
+                  if t in self.params}
+        self.route = "/".join(sorted(routes))
+        _log(verbosity, 1, "route: %s, compute dtype %s, kernels %s", self.route,
+             compute_dtype, "on" if kernels else "off (plain versions)")
 
         self.tokenizer: ClipTokenizer | None = None
         if self.config.has_text:

@@ -3,7 +3,8 @@
 Same layout as the JAX package's ``models/params.py``: per-layer weights are
 stacked along a leading layer axis; Q/K/V are fused into one ``[3H, H]``
 projection; quantized 2-D weights stay packed as :class:`QTensor` leaves;
-biases and norms stay float32.  Names follow function, not the GGUF's
+biases, norms and the class embedding stay float32 and every other dense
+tensor takes the compute dtype.  Names follow function, not the GGUF's
 historical swap: ``up_*`` comes from ``ffn_down`` tensors, ``down_*`` from
 ``ffn_up``.
 
@@ -11,7 +12,9 @@ Loading runs on the host in numpy (``load_params_np``), including the
 re-quantization of the layer weights to per-channel int8
 (:func:`convert_layers_to_w8`), so the int8 codes and scales equal the JAX
 package's by construction; :func:`params_from_numpy` then moves the tree to
-a device.
+a device.  Dense (f16/f32-sourced) layer weights are not re-quantized, as in
+the JAX package's default (``engine.py:74``, ``include_dense=False``): they
+take the dense route of ``models/transformer.py``.
 """
 
 from __future__ import annotations
@@ -127,7 +130,14 @@ def convert_layers_to_w8(params: dict) -> dict:
     return out
 
 
-def _leaf_to_torch(leaf, device) -> Any:
+def _keeps_f32(name: str) -> bool:
+    """Biases, norms and the class embedding stay float32; every other dense
+    tensor takes the compute dtype (the JAX package's
+    ``models/params.py:53-66``, by parameter name here)."""
+    return name.endswith("_b") or "ln" in name or name == "class_embd"
+
+
+def _leaf_to_torch(leaf, device, dtype) -> Any:
     # duck-typed so that the JAX package's QTensor / W8Tensor leaves (with
     # numpy fields) convert too, without importing that package
     if hasattr(leaf, "c8"):
@@ -137,20 +147,24 @@ def _leaf_to_torch(leaf, device) -> Any:
                        hb=leaf.hb).to(device)
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":  # ml_dtypes; torch.from_numpy rejects it
-        return torch.from_numpy(arr.astype(np.float32)).to(device).to(torch.bfloat16)
-    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(device)
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(device, dtype)
 
 
-def params_from_numpy(tree: dict, device) -> dict:
+def params_from_numpy(tree: dict, device, dtype: torch.dtype) -> dict:
     """A (nested dict) parameter tree whose leaves are numpy arrays or
     QTensor / W8Tensor objects with numpy fields -> the same tree of torch
-    tensors on ``device``.  Accepts the JAX package's parameter pytree after
-    its leaves were pulled to numpy."""
-    return {k: params_from_numpy(v, device) if isinstance(v, dict) else _leaf_to_torch(v, device)
+    tensors on ``device``, dense weights in the compute dtype ``dtype``
+    (biases, norms and the class embedding in float32).  Accepts the JAX
+    package's parameter pytree after its leaves were pulled to numpy (dense
+    leaves may be ml_dtypes bfloat16)."""
+    return {k: params_from_numpy(v, device, dtype) if isinstance(v, dict) else
+            _leaf_to_torch(v, device, torch.float32 if _keeps_f32(k) else dtype)
             for k, v in tree.items()}
 
 
-def load_params(reader: GGUFReader, cfg: ClipConfig | None = None, *, device) -> dict:
-    """Load a checkpoint, re-quantize the layer weights to int8 and move the
-    tree to ``device``."""
-    return params_from_numpy(convert_layers_to_w8(load_params_np(reader, cfg)), device)
+def load_params(reader: GGUFReader, cfg: ClipConfig | None = None, *, device,
+                dtype: torch.dtype) -> dict:
+    """Load a checkpoint, re-quantize its block-quantized layer weights to
+    int8 and move the tree to ``device``, dense weights in ``dtype``."""
+    return params_from_numpy(convert_layers_to_w8(load_params_np(reader, cfg)), device, dtype)

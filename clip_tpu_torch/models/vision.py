@@ -3,9 +3,9 @@ the transformer stack, CLS pooling, post-LN, projection and optional L2
 normalization (the JAX package's ``models/vision.py``).
 
 The stride-p convolution over non-overlapping patches is one matmul over
-the reshaped patches.  No sequence padding: the block kernels run any S
-(S = 50 at ViT-B/32), so the JAX package's pad-once to a multiple of 8 is
-not needed.
+the reshaped patches.  No sequence padding: the kernels of both routes run any
+S (S = 50 at ViT-B/32), so the JAX package's pad-once to a multiple of 8 is
+not needed (it masks the pad keys, so real rows are the same without it).
 """
 
 from __future__ import annotations

@@ -2,15 +2,16 @@
 
 ``qmatmul(x, w)`` computes ``x @ w.T`` for ``w`` a dense ``[N, K]`` tensor, a
 :class:`~.qtensor.QTensor` or a :class:`~.qtensor.W8Tensor`, with the routing
-of the JAX package's ``ops/linear.py:83-151`` on an accelerator:
+of the JAX package's ``ops/linear.py:83-151`` on an accelerator
+(:func:`fused_route`):
 
-* a q4_0/q4_1 2-D weight at 2048 rows or fewer, on a card, goes to the
-  fused q4 dequant-GEMM kernel (``ops/qmatmul.py``);
-* more rows go to dequantize-then-``torch.matmul``, as the JAX package
-  leaves that case to XLA;
-* q5 weights (at any row count) and q8 weights (at 2048 rows or fewer) take
-  the TPU's fused kernel in the JAX package, whose bodies are not ported:
-  they raise ``NotImplementedError`` on a card;
+* a 2-D q5_0/q5_1 weight at any row count, and a 2-D q4_0/q4_1/q8_0 weight
+  at 2048 rows or fewer, go on a card to the fused dequant-GEMM kernel of
+  their format (``ops/qmatmul.py``);
+* other block-quantized cases dequantize, then ``torch.matmul``, as the
+  JAX package leaves them to XLA;
+* a dense weight is ``torch.matmul`` in the compute dtype, outside any
+  kernel, as the JAX package leaves it to XLA;
 * on the CPU every block format dequantizes, as the JAX package does off
   the TPU.
 
@@ -22,11 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from .qmatmul import qmatmul_q4, qmatmul_q4_plain
 from .nn import quant_rows
+from .qmatmul import qmatmul_plain, qmatmul_q4, qmatmul_q5, qmatmul_q8
 from .qtensor import QTensor, W8Tensor, dequant
 
-__all__ = ["qmatmul", "w8a8_matmul"]
+__all__ = ["fused_route", "qmatmul", "w8a8_matmul"]
 
 _KERNEL_MAX_ROWS = 2048
 
@@ -43,6 +44,22 @@ def w8a8_matmul(x: torch.Tensor, w: W8Tensor, compute_dtype=None) -> torch.Tenso
     return y.to(compute_dtype).reshape(*lead, w.c8.shape[0])
 
 
+def fused_route(w, rows: int) -> bool:
+    """True where the JAX package's ``auto`` backend on a TPU sends ``x
+    [rows, K] @ w.T`` to ``qmatmul_pallas`` (``ops/linear.py:83-100
+    _resolve``): a 2-D block weight, q5 at any row count, others at 2048
+    rows or fewer."""
+    if not isinstance(w, QTensor) or w.q.ndim != 2:
+        return False
+    return w.is_packed5 or rows <= _KERNEL_MAX_ROWS
+
+
+def _kernel_for(w: QTensor):
+    if w.is_packed4:
+        return qmatmul_q4
+    return qmatmul_q5 if w.is_packed5 else qmatmul_q8
+
+
 def qmatmul(x: torch.Tensor, w, *, compute_dtype=None, kernels: bool = True) -> torch.Tensor:
     """``x [..., K] @ w[N, K].T -> [..., N]`` in ``compute_dtype`` (default
     ``x.dtype``); accumulation is float32."""
@@ -51,16 +68,9 @@ def qmatmul(x: torch.Tensor, w, *, compute_dtype=None, kernels: bool = True) -> 
         return w8a8_matmul(x, w, cdt)
     lead = x.shape[:-1]
     rows = x.reshape(-1, x.shape[-1]).shape[0]
-    if isinstance(w, QTensor):
-        fused = w.q.dim() == 2 and rows <= _KERNEL_MAX_ROWS
-        if w.is_packed4 and fused and x.is_cuda:
-            x2 = x.reshape(rows, -1).to(cdt)
-            y = qmatmul_q4(x2, w) if kernels else qmatmul_q4_plain(x2, w)
-            return y.reshape(*lead, -1)
-        if x.is_cuda and kernels and (w.is_packed5 or fused):
-            raise NotImplementedError(
-                f"the fused {w.qtype.name} dequant-GEMM is not ported to CUDA yet")
-        wd = dequant(w, dtype=cdt)
-    else:
-        wd = w.to(cdt)
+    if x.is_cuda and fused_route(w, rows):
+        x2 = x.reshape(rows, -1).to(cdt)
+        y = _kernel_for(w)(x2, w) if kernels else qmatmul_plain(x2, w)
+        return y.reshape(*lead, -1)
+    wd = dequant(w, dtype=cdt) if isinstance(w, QTensor) else w.to(cdt)
     return torch.matmul(x.to(cdt), wd.T)

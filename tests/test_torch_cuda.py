@@ -17,7 +17,7 @@ import torch
 from clip_tpu_torch.gguf.constants import GGMLType
 from clip_tpu_torch.ops import actquant as aq
 from clip_tpu_torch.ops import attention as at
-from clip_tpu_torch.ops.qmatmul import qmatmul_q4, qmatmul_q4_plain
+from clip_tpu_torch.ops.qmatmul import qmatmul_plain, qmatmul_q4, qmatmul_q5, qmatmul_q8
 from clip_tpu_torch.ops.qtensor import from_ggml_blocks, to_w8tensor
 from clip_tpu_torch.quant import quantize
 
@@ -127,8 +127,76 @@ def test_qmatmul_q4_matches_plain(card, qtype):
     w = from_ggml_blocks(quantize(rng.normal(0, 0.05, (n, k)).astype(np.float32), qtype),
                          (n, k), qtype).to(card)
     x = _x(rng, (13, k), card)
-    torch.testing.assert_close(qmatmul_q4(x, w).float(), qmatmul_q4_plain(x, w).float(),
+    torch.testing.assert_close(qmatmul_q4(x, w).float(), qmatmul_plain(x, w).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("qtype,fn", [(GGMLType.Q5_0, qmatmul_q5), (GGMLType.Q5_1, qmatmul_q5),
+                                      (GGMLType.Q8_0, qmatmul_q8)])
+@pytest.mark.parametrize("m", [1, 13])
+def test_qmatmul_q5_q8_match_plain(card, qtype, fn, m):
+    rng = np.random.default_rng(9)
+    n, k = 200, 96
+    w = from_ggml_blocks(quantize(rng.normal(0, 0.05, (n, k)).astype(np.float32), qtype),
+                         (n, k), qtype).to(card)
+    x = _x(rng, (m, k), card)
+    torch.testing.assert_close(fn(x, w).float(), qmatmul_plain(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_projection_routes_by_format_and_rows(card):
+    """q5 takes its kernel at any row count; q8_0 only at 2048 rows or
+    fewer (``ops/linear.py``, as the JAX package routes on a TPU)."""
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.ops.linear import qmatmul
+
+    rng = np.random.default_rng(10)
+    ws = {qt: from_ggml_blocks(quantize(rng.normal(0, 0.05, (64, 64)).astype(np.float32), qt),
+                               (64, 64), qt).to(card) for qt in (GGMLType.Q5_1, GGMLType.Q8_0)}
+    ops.reset_launches()
+    for rows in (2048, 2049):
+        x = _x(rng, (rows, 64), card)
+        for w in ws.values():
+            y = qmatmul(x, w)
+            torch.testing.assert_close(y.float(), qmatmul_plain(x, w).float(),
+                                       rtol=2e-2, atol=2e-2)
+    assert ops.launches()["qmatmul_q5"] == 2 and ops.launches()["qmatmul_q8"] == 1
+
+
+# S = 577 (ViT-L/14-336), S = 584 with valid_len 577 (its pad-once length),
+# d_head 80 at S = 257 (ViT-H/14) and the largest single-image S, 640
+_LONG = [(2, 577, 2, 64, None), (1, 584, 2, 64, 577), (2, 257, 2, 80, None),
+         (1, 640, 1, 80, None)]
+
+
+@pytest.mark.parametrize("b,s,nh,dh,vl", _LONG)
+def test_attention_heads_long_sequences(card, b, s, nh, dh, vl):
+    rng = np.random.default_rng(11)
+    qkv = _x(rng, (b * s, 3 * nh * dh), card)
+    out = at.attention_heads(qkv, b, s, nh, dh ** -0.5, valid_len=vl)
+    torch.cuda.synchronize()
+    ref = at.attention_heads_plain(qkv, b, s, nh, dh ** -0.5, valid_len=vl)
+    assert _cos(out, ref) > 0.9999
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,s,nh,dh,vl,causal", [(3, 13, 4, 64, None, False),
+                                                  (3, 13, 4, 64, 9, False),
+                                                  (2, 80, 2, 64, None, True),
+                                                  *[(*c, False) for c in _LONG]])
+def test_mha_qkv_matches_plain(card, b, s, nh, dh, vl, causal):
+    rng = np.random.default_rng(12)
+    qkv = _x(rng, (b, s, 3 * nh * dh), card)
+    kw = dict(n_head=nh, scale=dh ** -0.5, causal=causal, valid_len=vl)
+    out = at.mha_qkv(qkv, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, nh * dh)
+    torch.testing.assert_close(out, at.mha_qkv_plain(qkv, **kw), rtol=1.6e-2, atol=1e-3)
+
+
+def test_mha_qkv_raises_past_shared_memory(card):
+    qkv = torch.zeros(1, 700, 3 * 80, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        at.mha_qkv(qkv, n_head=1, scale=0.1)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -155,6 +223,29 @@ def test_engine_kernels_match_plain(card, tmp_path, monkeypatch):
     ops.reset_launches()
     a_img, a_txt = eng.encode_image(imgs), eng.encode_text(["a photo of a cat", "dog"])
     assert ops.launches()["attn_block"] == 4 and ops.launches()["qmatmul_q4"] == 2
+    b_img, b_txt = ref.encode_image(imgs), ref.encode_text(["a photo of a cat", "dog"])
+    assert (a_img * b_img).sum(1).min() > 0.999
+    assert (a_txt * b_txt).sum(1).min() > 0.999
+
+
+def test_engine_dense_kernels_match_plain(card, tmp_path, monkeypatch):
+    """An f16 checkpoint takes the dense route: ``mha_qkv`` once per layer,
+    no block chain; agreement with the plain route in f32."""
+    from clip_tpu_torch import ops, synth
+    from clip_tpu_torch.engine import ClipEngine
+
+    monkeypatch.setitem(synth.VARIANTS, "test-128",
+                        synth.Variant(128, 4, 2, 256, 128, 4, 2, 256, 64, 32, 64))
+    path = synth.make_synthetic_gguf(str(tmp_path / "t128.gguf"), "test-128", ftype="f16")
+    eng = ClipEngine(path, verbosity=0)
+    ref = ClipEngine(path, compute_dtype="float32", kernels=False, verbosity=0)
+    assert eng.route == "dense"
+    rng = np.random.default_rng(13)
+    imgs = [(rng.random((70, 90, 3)) * 255).astype(np.uint8) for _ in range(3)]
+    ops.reset_launches()
+    a_img, a_txt = eng.encode_image(imgs), eng.encode_text(["a photo of a cat", "dog"])
+    n = ops.launches()
+    assert n["mha_qkv"] == 4 and n["attn_block"] == 0 and n["mlp_lnq"] == 0
     b_img, b_txt = ref.encode_image(imgs), ref.encode_text(["a photo of a cat", "dog"])
     assert (a_img * b_img).sum(1).min() > 0.999
     assert (a_txt * b_txt).sum(1).min() > 0.999

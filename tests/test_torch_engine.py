@@ -122,7 +122,7 @@ def test_params_from_numpy_matches_loader(engines):
 
     _, ref, port = engines
     tree = jax.tree.map(np.asarray, ref.params)
-    conv = params_from_numpy(tree, "cpu")
+    conv = params_from_numpy(tree, "cpu", torch.float32)
     for tower in ("text", "vision"):
         for name in ("qkv_w", "o_w", "up_w", "down_w"):
             a, b = conv[tower]["layers"][name], port.params[tower]["layers"][name]
@@ -138,7 +138,7 @@ def test_port_with_jax_params_matches(engines):
     import jax
 
     _, ref, port = engines
-    conv = params_from_numpy(jax.tree.map(np.asarray, ref.params), "cpu")
+    conv = params_from_numpy(jax.tree.map(np.asarray, ref.params), "cpu", torch.float32)
     saved = port.params
     try:
         port.params = conv
@@ -168,3 +168,29 @@ def test_other_routes_raise(engines):
     for flags in (dict(lnq_fuse=False), dict(attn_block=False), dict(mlp_full=False)):
         with pytest.raises(NotImplementedError):
             transformer.block(x, lp, n_head=4, eps=1e-5, use_gelu=False, **flags)
+
+
+def test_dense_layer_weights_take_the_dense_route(engines):
+    """Dense layer weights (the int8 weights dequantized) take the dense
+    route under every flag set, and match the JAX package's dense block
+    (``mha_pallas_qkv`` in interpret mode); a mix of int8 and dense layer
+    weights raises."""
+    import jax.numpy as jnp
+    from clip_tpu.models import transformer as jax_transformer
+
+    _, _, port = engines
+    lp = transformer.layer(port.params["text"]["layers"], 0)
+    dense = {k: (v.c8.to(torch.float32) * v.ws[:, None] if isinstance(v, W8Tensor) else v)
+             for k, v in lp.items()}
+    assert transformer.route(dense) == "dense" and transformer.route(lp) == "w8a8"
+    x = np.random.default_rng(3).normal(0, 1, (2, 16, port.config.text.hidden_size))
+    x = x.astype(np.float32)
+    kw = dict(n_head=port.config.text.n_head, eps=1e-5, use_gelu=False, causal=True)
+    ref = np.asarray(jax_transformer.block(
+        jnp.asarray(x), {k: jnp.asarray(v.numpy()) for k, v in dense.items()},
+        compute_dtype=jnp.float32, attn_impl="pallas", **kw))
+    for flags in (dict(), dict(lnq_fuse=False), dict(attn_block=False), dict(mlp_full=False)):
+        out = transformer.block(torch.from_numpy(x), dense, **kw, **flags).numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError):
+        transformer.block(torch.from_numpy(x), {**dense, "o_w": lp["o_w"]}, **kw)

@@ -2,12 +2,14 @@
 
 Both sides get the same numpy inputs, made from a seed: the weights are one
 layer of the 128-wide q4_0 two-tower checkpoint (the smallest width at which
-the JAX package's fusion gates engage), re-quantized to int8 by each side.
+the JAX package's fusion gates engage), re-quantized to int8 by each side,
+or random q4/q5/q8 block weights and fused qkv activations.
 The JAX kernels run in interpret mode, as the JAX package's own CPU tests
 run them; the port runs its plain versions on the CPU in float32 (a CPU
 tensor takes the plain version in every wrapper).  Bounds are the JAX
 package's own: ``tests/test_actquant_fusion.py:347-351`` for the blocks,
-``tests/test_qmatmul.py:19`` for the dequant-GEMM.
+``tests/test_qmatmul.py:19`` for the dequant-GEMM, ``tests/test_attention_pallas.py``
+(1e-4) for ``mha_pallas_qkv``.
 """
 
 import jax.numpy as jnp
@@ -20,7 +22,7 @@ from clip_tpu.models.params import load_params as jax_load_params
 from clip_tpu.ops import nn as jnn
 from clip_tpu.ops import qtensor as jqt
 from clip_tpu.ops.actquant_pallas import mlp_lnq_pallas
-from clip_tpu.ops.attention_pallas import attn_block_pallas
+from clip_tpu.ops.attention_pallas import _flat_block_b, attn_block_pallas, mha_pallas_qkv
 from clip_tpu.ops.linear import quant_rows as jax_quant_rows
 from clip_tpu.ops.qmatmul_pallas import qmatmul_pallas
 
@@ -29,10 +31,11 @@ from clip_tpu_torch.gguf.constants import GGMLType
 from clip_tpu_torch.models.params import convert_layers_to_w8, load_params_np
 from clip_tpu_torch.ops import nn as tnn
 from clip_tpu_torch.ops import qtensor as tqt
-from clip_tpu_torch.ops.actquant import mlp_lnq
-from clip_tpu_torch.ops.attention import attn_block
-from clip_tpu_torch.ops.linear import qmatmul, w8a8_matmul
-from clip_tpu_torch.ops.qmatmul import qmatmul_q4
+from clip_tpu_torch.ops.actquant import mlp_lnq, requant
+from clip_tpu_torch.ops.attention import (SMEM_LIMIT, attention_heads, attention_smem,
+                                          attn_block, mha_qkv)
+from clip_tpu_torch.ops.linear import fused_route, qmatmul, w8a8_matmul
+from clip_tpu_torch.ops.qmatmul import qmatmul_q4, qmatmul_q5, qmatmul_q8
 from clip_tpu_torch.quant import quantize
 from test_actquant_fusion import _w128_q4_gguf
 
@@ -145,6 +148,105 @@ def test_qmatmul_q4_matches_pallas(qtype, m):
                                     interpret=True))
     out = qmatmul_q4(torch.from_numpy(x), tw.to("cpu"))
     np.testing.assert_allclose(out.numpy(), ref, **QMM_TOL)
+
+
+@pytest.mark.parametrize("qtype,fn", [(GGMLType.Q5_0, qmatmul_q5), (GGMLType.Q5_1, qmatmul_q5),
+                                      (GGMLType.Q8_0, qmatmul_q8)])
+@pytest.mark.parametrize("m", [1, 64, 300])
+def test_qmatmul_q5_q8_match_pallas(qtype, fn, m):
+    """The plain versions of the packed5 and bytes bodies (the wrappers on a
+    CPU tensor) against ``qmatmul_pallas`` in interpret mode."""
+    rng = np.random.default_rng(8)
+    n, k = 200, 256
+    jw, tw = _both_qt(rng, n, k, qtype)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    ref = np.asarray(qmatmul_pallas(jnp.asarray(x), jw, compute_dtype=jnp.float32,
+                                    interpret=True))
+    out = fn(torch.from_numpy(x), tw.to("cpu"))
+    np.testing.assert_allclose(out.numpy(), ref, **QMM_TOL)
+
+
+def test_qmatmul_wrappers_reject_other_formats():
+    rng = np.random.default_rng(9)
+    _, w8 = _both_qt(rng, 32, 64, GGMLType.Q8_0)
+    _, w5 = _both_qt(rng, 32, 64, GGMLType.Q5_1)
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError):
+        qmatmul_q4(x, w8.to("cpu"))
+    with pytest.raises(ValueError):
+        qmatmul_q8(x, w5.to("cpu"))
+    with pytest.raises(ValueError):
+        qmatmul_q5(x, w8.to("cpu"))
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q5_1, GGMLType.Q8_0])
+@pytest.mark.parametrize("rows", [2048, 2049])
+def test_fused_route_matches_jax_resolve(qtype, rows, monkeypatch):
+    """The port sends a projection to its fused kernel exactly where the JAX
+    package's ``auto`` backend on a TPU sends it to ``qmatmul_pallas``."""
+    import importlib
+
+    L = importlib.import_module("clip_tpu.ops.linear")
+    monkeypatch.setattr(L.jax, "default_backend", lambda: "tpu")
+    jw, tw = _both_qt(np.random.default_rng(10), 32, 64, qtype)
+    want = L._resolve("auto", jnp.zeros((rows, 64), jnp.float32), jw) == "pallas"
+    assert fused_route(tw, rows) == want
+    assert want == (qtype != GGMLType.Q5_1 and rows <= 2048 or qtype == GGMLType.Q5_1)
+
+
+def _qkv(seed, b, s, n_head, dh):
+    return np.random.default_rng(seed).normal(0, 1, (b, s, 3 * n_head * dh)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,body", [(4, "flat"), (2, "padded")])
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("mode", ["plain", "causal", "valid_len"])
+def test_mha_qkv_matches_pallas(b, body, dh, mode):
+    """``mha_qkv``'s plain version against both bodies of ``mha_pallas_qkv``
+    (interpret mode, f32): (B = 4, S = 50) takes the flat body, (B = 2,
+    S = 50) the padded 3-D one."""
+    s, nh = 50, 2
+    h3 = 3 * nh * dh
+    assert (_flat_block_b(b, s, h3) is not None) == (body == "flat")
+    x = _qkv(11, b, s, nh, dh)
+    kw = dict(n_head=nh, scale=dh ** -0.5, causal=mode == "causal",
+              valid_len=37 if mode == "valid_len" else None)
+    ref = np.asarray(mha_pallas_qkv(jnp.asarray(x), interpret=True, **kw))
+    out = mha_qkv(torch.from_numpy(x), **kw)
+    assert out.dtype == torch.float32 and out.shape == (b, s, nh * dh)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,dh", [(50, 64), (80, 64), (257, 80), (577, 64), (584, 64),
+                                  (640, 64), (640, 80)])
+def test_attention_core_fits_every_single_image_sequence(s, dh):
+    """The card's attention core holds every sequence ``mha_pallas_qkv``
+    takes one image at a time (S <= 640) at d_head 64 and 80 in one block's
+    shared memory; staging Q as well (the first version) did not fit
+    ViT-L/14-336's S = 577."""
+    assert attention_smem(s, dh) <= SMEM_LIMIT
+    assert 3 * 577 * (64 + 2) * 2 + 4 * 577 * 4 > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("mode", ["plain", "causal", "valid_len"])
+def test_mha_qkv_quant_out_is_attention_then_requant(mode):
+    """``mha_pallas_qkv(quant_out=True)`` is the f32 attention followed by
+    the row requant: scales to 1e-6 relative, codes equal but for 1 at
+    rounding ties."""
+    b, s, nh, dh = 4, 50, 2, 64
+    x = _qkv(12, b, s, nh, dh)
+    kw = dict(n_head=nh, scale=dh ** -0.5, causal=mode == "causal",
+              valid_len=37 if mode == "valid_len" else None)
+    rc, rs = mha_pallas_qkv(jnp.asarray(x), interpret=True, quant_out=True, **kw)
+    att = attention_heads(torch.from_numpy(x.reshape(b * s, -1)), b, s, nh, kw["scale"],
+                          kw["causal"], kw["valid_len"])
+    codes, sx = requant(att)
+    np.testing.assert_allclose(sx.numpy(), np.asarray(rs).reshape(-1), rtol=1e-6, atol=0)
+    diff = np.abs(codes.numpy().astype(np.int32) - np.asarray(rc).reshape(b * s, -1))
+    assert diff.max() <= 1
+    if diff.max():
+        v = att.numpy() / sx.numpy()[:, None]
+        assert np.abs(v - np.floor(v) - 0.5)[diff > 0].max() < 1e-3
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0,
