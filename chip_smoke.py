@@ -11,26 +11,48 @@ Phases, each printing one flushed line with its wall seconds:
    worker processes writes the seeded random checkpoints of the path
    phases into a temporary directory, and the profiler sets up its device
    tracing;
-3. kernels: every kernel wrapper against its plain PyTorch version on the
-   card, at the main paths' shapes (ViT-B/32: vision rows 64 x 50, text rows
-   8 x 80 causal, projection M = 64 and M = 1 with q4_0/q4_1/q5_0/q5_1/q8_0
-   [512, 768] weights), and ``mha_qkv`` / ``attention_heads`` at the long
-   sequences of other catalog models (ViT-H/14's d_head 80 at S = 257,
-   ViT-L/14-336's S = 577 and its pad-once S = 584);
-4. paths: ``ClipEngine`` on CUDA over four ViT-B/32 checkpoints, each run
-   with every launch counter set to 0 just before it and read just after:
-   q4_0 two towers (the W8A8 main path) and f16 two towers (the dense path),
-   each 64 images + 8 prompts + one zero-shot labeling; q5_1 and q8_0 vision
-   towers, 64 images each.  Every counter must rise by the count the path
-   implies, the embeddings must be finite and unit-norm and agree (per-row
-   cos > 0.999) with the same engine forced onto its plain versions in
-   float32;
-5. long_sequence: a two-layer W8A8 stack at ViT-L/14-336's widths (H 1024,
-   16 heads, MLP 4096, S 577) through ``run_blocks``, kernels against the
-   plain versions (cos > 0.999);
-6. timing (reported, not gated): each kernel, its plain version, one
-   PyTorch library call where one computes the same function, and the
-   q4_0 and f16 vision towers at B = 256.
+3. kernels: every kernel wrapper of the fused and dense routes against its
+   plain PyTorch version on the card, at the main paths' shapes (ViT-B/32:
+   vision rows 64 x 50, text rows 8 x 80 causal, projection M = 64 and
+   M = 1 with q4_0/q4_1/q5_0/q5_1/q8_0 [512, 768] weights), and
+   ``mha_qkv`` / ``attention_heads`` at the long sequences of other catalog
+   models (ViT-H/14's d_head 80 at S = 257, ViT-L/14-336's S = 577 and its
+   pad-once S = 584);
+4. staged_kernels: the staged routes' wrappers against their plain
+   versions at the new paths' shapes (``lnq`` at [64 x 264, 1280] and
+   [2 x 584, 1024]; ``gemm_gq`` with gelu at ViT-H/14's up GEMM and with no
+   activation at ViT-B/32's qkv GEMM; ``w8a8_pre`` at ViT-H/14's down and
+   ViT-L/14-336's qkv GEMM; ``mlp_gq`` at ViT-B/32; ``mha_qkv_i8`` at
+   64 x 50, 8 x 80 causal and 2 x 584 valid 577, both output forms), and
+   device preprocessing against the host path (atol 5e-4 in pixel space);
+5. paths: ``ClipEngine`` on CUDA, uint8 images (so device preprocessing),
+   each drive with every launch counter set to 0 just before it and read
+   just after: four ViT-B/32 checkpoints (q4_0 and f16 two towers, 64
+   images + 8 prompts + one zero-shot labeling; q5_1 and q8_0 vision, 64
+   images); the q4_0 checkpoint once more with ``lnq_fuse=False`` (the
+   no-lnq attention and the ``up_gq`` MLP); ViT-H/14 cut to 8 layers (64
+   images; staged MLP); ViT-L/14-336 cut to 4 layers (1, 2 and 4 images;
+   staged attention, its o projection on the q4_0 source at 584 and 1168
+   rows, on the int8 GEMM at 2336).  Every counter must rise by the count
+   the route implies, the embeddings must be finite and unit-norm and agree
+   (per-row cos > 0.999) with the same engine forced onto its plain
+   versions in float32.  The f16 path encodes its images once more with
+   bf16 reduced-precision reductions off and reports the largest change;
+6. long_sequence: two ViT-L/14-336 layers at the unpadded S = 577 through
+   ``run_blocks`` (the staged route), kernels against the plain versions;
+7. attn_i8_stacks: two layers on the ``attn_i8`` route at ViT-B/32 vision
+   (B 64, S 50) and text (B 8, S 80, causal) widths and ViT-L/14-336's
+   (B 2, S 584, valid 577), launches counted, per-row cos > 0.999 against
+   the plain float32 stack;
+8. route_difference: one ViT-L/14-336 layer at B = 1 and 4, the staged
+   route with kernels and the fused chain at S = 577 (the route before the
+   route gates) against the staged route in plain float32 (reported);
+9. timing (reported, not gated): each kernel, its plain version, one
+   PyTorch library call where one computes the same function (SDPA on the
+   dequantized q, k, v beside ``mha_qkv_i8``: the nearest call, not the
+   same function), the q4_0 and f16 ViT-B/32 vision towers at B = 256, the
+   ViT-H/14 cut tower at B = 64 and the ViT-L/14-336 cut tower at B = 1 and
+   4, each whole and per layer.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -332,53 +354,124 @@ def check_kernels(device) -> dict:
 # path name -> (GGUF ftype, towers): seeded random ViT-B/32 checkpoints
 PATHS = {"q4_0": ("q4_0", "both"), "f16": ("f16", "both"), "q5_1": ("q5_1", "vision"),
          "q8_0": ("q8_0", "vision")}
+# checkpoint name -> (catalog variant, vision layers kept): q4_0 vision
+# towers at full width with their depth cut, registered as cut variants in
+# the worker that writes them
+CUT_PATHS = {"h14": ("ViT-H/14", 8), "l14_336": ("ViT-L/14-336", 4)}
 # wrappers whose launches each path run reads
-PATH_WRAPPERS = ("attn_block", "mlp_lnq", "mha_qkv", "qmatmul_q4", "qmatmul_q5", "qmatmul_q8")
+PATH_WRAPPERS = ("attn_block", "mlp_lnq", "mha_qkv", "qmatmul_q4", "qmatmul_q5", "qmatmul_q8",
+                 "lnq", "gemm_gq", "mlp_gq", "mha_qkv_i8", "w8a8_pre")
+
+
+def write_cut(path: str, variant: str, v_layers: int) -> str:
+    """Write a q4_0 vision checkpoint of ``variant`` with its depth cut to
+    ``v_layers`` (runs in a worker process)."""
+    import dataclasses
+
+    from clip_tpu_torch import synth
+
+    cut = f"{variant}-cut{v_layers}"
+    synth.VARIANTS[cut] = dataclasses.replace(synth.VARIANTS[variant], v_layers=v_layers)
+    return synth.make_synthetic_gguf(path, cut, ftype="q4_0", towers="vision", seed=0)
 
 
 def write_checkpoints(pool, tmp: str) -> dict:
-    """Submit the path phases' checkpoints to ``pool``; returns futures of
-    their paths."""
+    """Submit the path phases' checkpoints to ``pool`` (the largest first);
+    returns futures of their paths."""
     from clip_tpu_torch.synth import make_synthetic_gguf
 
-    return {name: pool.submit(make_synthetic_gguf, os.path.join(tmp, f"vit-b-32_{name}.gguf"),
-                              "ViT-B/32", ftype=ft, towers=towers, seed=0)
-            for name, (ft, towers) in PATHS.items()}
+    futs = {name: pool.submit(write_cut, os.path.join(tmp, f"{name}_q4_0.gguf"), variant, n)
+            for name, (variant, n) in CUT_PATHS.items()}
+    futs.update({name: pool.submit(make_synthetic_gguf,
+                                   os.path.join(tmp, f"vit-b-32_{name}.gguf"), "ViT-B/32",
+                                   ftype=ft, towers=towers, seed=0)
+                 for name, (ft, towers) in PATHS.items()})
+    return futs
 
 
-def expected_launches(eng, calls: dict) -> dict:
-    """Launches a run of ``calls[tower]`` tower calls implies: the W8A8 route
-    runs one attention block and one MLP block per layer, the dense route
-    one ``mha_qkv``; each call's block-quantized projection runs the kernel
-    of its format (64 rows or fewer: the fused route)."""
+def _proj(rows: int) -> str:
+    """The wrapper of a W8 layer projection that keeps its q4_0 source: the
+    dequant-GEMM on the source at 2048 rows or fewer, else the int8 GEMM."""
+    return "qmatmul_q4" if rows <= 2048 else "w8a8_pre"
+
+
+def layer_launches(attn: str, mlp: str, rows: int) -> dict:
+    """Launches of the ``PATH_WRAPPERS`` one layer over ``rows`` rows implies,
+    by the route of its attention and MLP halves.  The block chains launch
+    ``lnq`` themselves, and ``mlp_gq`` launches ``gemm_gq`` and ``w8a8_pre``,
+    so those count too."""
+    n = dict.fromkeys(PATH_WRAPPERS, 0)
+    steps = {"block": ["attn_block", "lnq"],
+             "staged": ["lnq", "w8a8_pre", "mha_qkv", _proj(rows)],
+             "no_lnq": [_proj(rows), "mha_qkv", _proj(rows)],
+             "i8_quant_o": ["lnq", "gemm_gq", "mha_qkv_i8"],
+             "i8": ["lnq", "gemm_gq", "mha_qkv_i8", _proj(rows)],
+             "dense": ["mha_qkv"]}[attn]
+    steps += {"block": ["mlp_lnq", "lnq"], "staged": ["lnq", "gemm_gq"],
+              "gq": ["mlp_gq", "gemm_gq", "w8a8_pre"], "dense": []}[mlp]
+    for w in steps:
+        n[w] += 1
+    return n
+
+
+def expected_launches(eng, calls) -> dict:
+    """Launches a run of tower ``calls`` implies: each call is (tower, rows,
+    attention route, MLP route) and runs every layer of its tower on that
+    route, then its block-quantized projection through the kernel of its
+    format (each call's projection has 64 rows or fewer)."""
     from clip_tpu_torch.ops.qtensor import QTensor
 
     cfg = {"vision": eng.config.vision, "text": eng.config.text}
-    layers = sum(cfg[t].n_layer * n for t, n in calls.items() if n)
     exp = dict.fromkeys(PATH_WRAPPERS, 0)
-    if eng.route == "w8a8":
-        exp["attn_block"] = exp["mlp_lnq"] = layers
-    else:
-        exp["mha_qkv"] = layers
-    for tower, n in calls.items():
-        proj = eng.params[tower]["proj"] if n else None
+    for tower, rows, attn, mlp in calls:
+        for k, v in layer_launches(attn, mlp, rows).items():
+            exp[k] += v * cfg[tower].n_layer
+        proj = eng.params[tower]["proj"]
         if isinstance(proj, QTensor):
             bits = 4 if proj.is_packed4 else 5 if proj.is_packed5 else 8
-            exp[f"qmatmul_q{bits}"] += n
+            exp[f"qmatmul_q{bits}"] += 1
     return exp
 
 
-def run_path(name: str, path: str) -> dict:
-    """One path phase: the engine end to end on ``path`` with the launch
-    counters set to 0 just before and read just after, then against the
-    plain route in float32."""
+def _b32_calls(attn: str, mlp: str) -> list:
+    """A two-tower ViT-B/32 drive: 64 images (rows 64 x 50), 8 prompts (8 x
+    80), then the zero-shot labeling: 1 image (padded once to S = 56) and 3
+    labels (bucket 4)."""
+    return [("vision", 64 * 50, attn, mlp), ("text", 8 * 80, attn, mlp),
+            ("vision", 56, attn, mlp), ("text", 4 * 80, attn, mlp)]
+
+
+# path phase -> (checkpoint, engine arguments, drives); a drive is (images,
+# with text and zero-shot labeling, tower calls it implies)
+PATH_RUNS = {
+    "q4_0": ("q4_0", {}, {"main": (64, True, _b32_calls("block", "block"))}),
+    "f16": ("f16", {}, {"main": (64, True, _b32_calls("dense", "dense"))}),
+    "q5_1": ("q5_1", {}, {"main": (64, False, [("vision", 3200, "block", "block")])}),
+    "q8_0": ("q8_0", {}, {"main": (64, False, [("vision", 3200, "block", "block")])}),
+    # ViT-H/14 (S 257 padded to 264): resident attention block, staged MLP
+    "h14_staged_mlp": ("h14", {}, {"main": (64, False,
+                                            [("vision", 64 * 264, "block", "staged")])}),
+    # ViT-L/14-336 (S 577 padded to 584): staged attention, whole-MLP block;
+    # its o projection on the q4_0 source at 584 and 1168 rows, int8 at 2336
+    "l14_336_staged_attn": ("l14_336", {}, {
+        f"b{n}": (n, False, [("vision", n * 584, "staged", "block")]) for n in (1, 2, 4)}),
+    # lnq_fuse off: LN ahead of the projections, the up_gq MLP (mlp_gq)
+    "b32_up_gq": ("q4_0", dict(lnq_fuse=False),
+                  {"main": (64, True, _b32_calls("no_lnq", "gq"))}),
+}
+
+
+def run_path(name: str, path: str, engine_kw: dict, drives: dict) -> dict:
+    """One path phase: the engine end to end on ``path``, each drive with
+    the launch counters set to 0 just before and read just after, then
+    against the same engine on its plain versions in float32."""
     import torch
 
     from clip_tpu_torch import ops
     from clip_tpu_torch.engine import ClipEngine
 
     t0 = time.perf_counter()
-    eng = ClipEngine(path, verbosity=0)
+    eng = ClipEngine(path, verbosity=0, **engine_kw)
     assert eng.device.type == "cuda" and eng.compute_dtype == torch.bfloat16
     load_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
@@ -386,84 +479,260 @@ def run_path(name: str, path: str) -> dict:
     prompts = ["a photo of a cat", "a photo of a dog", "a red apple", "the white cat",
                "an apple", "a dog", "a photo of the red dog", "white"]
     labels = ["cat", "dog", "apple"]
-    has_text = eng.config.has_text
 
-    def drive(e):
-        out = {"image": e.encode_image(images)}
-        if has_text:
+    def drive(e, n_images: int, text: bool):
+        out = {"image": e.encode_image(images[:n_images])}
+        if text:
             out["text"] = e.encode_text(prompts)
             out["zsl"] = e.zero_shot_label_image(images[0], labels)
         return out
 
-    ops.reset_launches()
-    t1 = time.perf_counter()
-    got = drive(eng)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t1
-    launches = {k: v for k, v in ops.launches().items() if k in PATH_WRAPPERS}
-
-    # image 64 (one vision call); text 8 and the zero-shot labeling (image 1
-    # + text of 3 labels) add a vision call and two text calls
-    expect = expected_launches(eng, {"vision": 2 if has_text else 1,
-                                     "text": 2 if has_text else 0})
-    assert launches == expect, f"{name}: launches {launches}, expected {expect}"
-    for tower in ("image", "text"):
-        if tower in got:
-            emb = got[tower]
-            assert np.isfinite(emb).all(), f"{name}: {tower} embeddings not finite"
-            norms = np.linalg.norm(emb, axis=1)
-            assert np.abs(norms - 1).max() < 1e-2, f"{name}: {tower} norms {norms}"
+    res = dict(engine=eng, route=eng.route, load_s=load_s, launches={}, expect={},
+               run_s={})
+    got = {}
+    for label, (n_images, text, calls) in drives.items():
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        got[label] = drive(eng, n_images, text)
+        torch.cuda.synchronize()
+        res["run_s"][label] = time.perf_counter() - t1
+        launches = {k: v for k, v in ops.launches().items() if k in PATH_WRAPPERS}
+        expect = expected_launches(eng, calls)
+        assert launches == expect, f"{name} {label}: launches {launches}, expected {expect}"
+        res["launches"][label], res["expect"][label] = launches, expect
+        for tower in ("image", "text"):
+            if tower in got[label]:
+                emb = got[label][tower]
+                assert np.isfinite(emb).all(), f"{name} {label}: {tower} embeddings not finite"
+                norms = np.linalg.norm(emb, axis=1)
+                assert np.abs(norms - 1).max() < 1e-2, f"{name} {label}: {tower} norms {norms}"
+    if name == "f16":
+        # the dense route's bf16 cuBLAS GEMMs with split-K reductions kept in
+        # f32: the same images once more, and the largest change
+        flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            again = eng.encode_image(images)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        res["bf16_reduction_off_max_diff"] = float(np.abs(again - got["main"]["image"]).max())
 
     t2 = time.perf_counter()
-    ref = ClipEngine(path, compute_dtype="float32", kernels=False, verbosity=0)
-    want = drive(ref)
-    res = dict(engine=eng, route=eng.route, launches=launches, expect=expect,
-               load_s=load_s, run_s=run_s, plain_s=time.perf_counter() - t2)
-    for tower in ("image", "text"):
-        if tower in got:
-            c = float((got[tower] * want[tower]).sum(1).min())
-            assert c > 0.999, f"{name}: {tower} embeddings vs plain f32: min cos {c}"
-            res[f"{tower}_min_cos"] = c
-    if has_text:
-        res["zsl"] = [got["zsl"][1].tolist(), got["zsl"][0].tolist()]
-        res["zsl_plain"] = [want["zsl"][1].tolist(), want["zsl"][0].tolist()]
+    ref = ClipEngine(path, compute_dtype="float32", kernels=False, verbosity=0, **engine_kw)
+    for label, (n_images, text, _) in drives.items():
+        want = drive(ref, n_images, text)
+        for tower in ("image", "text"):
+            if tower in got[label]:
+                c = float((got[label][tower] * want[tower]).sum(1).min())
+                assert c > 0.999, f"{name} {label}: {tower} vs plain f32: min cos {c}"
+                res[f"{label}_{tower}_min_cos"] = c
+        if text:
+            res[f"{label}_zsl"] = [got[label]["zsl"][1].tolist(), got[label]["zsl"][0].tolist()]
+            res[f"{label}_zsl_plain"] = [want["zsl"][1].tolist(), want["zsl"][0].tolist()]
+    res["plain_s"] = time.perf_counter() - t2
     del ref
     torch.cuda.empty_cache()
     return res
 
 
-def long_sequence(device) -> dict:
-    """Phase 5: two W8A8 layers at ViT-L/14-336's widths and S = 577
-    through ``run_blocks``, kernels against the plain versions."""
+def attn_i8_stacks(engines: dict) -> dict:
+    """Phase: two layers on the ``attn_i8`` route (``run_blocks(attn_block=
+    False, attn_i8=True)``) at three geometries, over the loaded engines'
+    layer weights (q4_0 sources kept): ViT-B/32 vision (B 64, S 50), its text
+    tower (B 8, S 80, causal) and ViT-L/14-336 (B 2, S 584, valid 577).
+    Launches counted per stack; per-row cos against the plain float32
+    stack."""
     import torch
 
     from clip_tpu_torch import ops
-    from clip_tpu_torch.gguf.constants import GGMLType
     from clip_tpu_torch.models.transformer import run_blocks
-    from clip_tpu_torch.ops.qtensor import W8Tensor
 
-    b, s, h, nh, f, n_layer = 2, 577, 1024, 16, 4096, 2
+    stacks = {"b32_vision": ("q4_0", "vision", 64, 50, None, False, "i8_quant_o"),
+              "b32_text": ("q4_0", "text", 8, 80, None, True, "i8_quant_o"),
+              "l14_336": ("l14_336_staged_attn", "vision", 2, 584, 577, False, "i8")}
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, (path, tower, b, s, vl, causal, attn) in stacks.items():
+        eng = engines[path]
+        cfg = getattr(eng.config, tower)
+        layers = {k: v[:2] for k, v in eng.params[tower]["layers"].items()}
+        x = rng.normal(0, 1, (b, s, cfg.hidden_size)).astype(np.float32)
+        if vl is not None:
+            x[:, vl:] = 0.0  # the pad rows of the vision tower's pad-once
+        x = torch.from_numpy(x).cuda().to(torch.bfloat16)
+        kw = dict(n_head=cfg.n_head, eps=cfg.eps, use_gelu=eng.config.use_gelu, causal=causal,
+                  valid_len=vl, attn_block=False, attn_i8=True)
+        ops.reset_launches()
+        got = run_blocks(x, layers, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if k in PATH_WRAPPERS}
+        expect = {k: 2 * v for k, v in layer_launches(attn, "block", b * s).items()}
+        assert launches == expect, f"attn_i8 {name}: launches {launches}, expected {expect}"
+        want = run_blocks(x.float(), layers, kernels=False, **kw)
+        real = slice(0, vl or s)
+        g, w = got[:, real].float(), want[:, real]
+        row_cos = (g * w).sum(-1) / (g.norm(dim=-1) * w.norm(dim=-1))
+        c = float(row_cos.min())
+        assert bool(torch.isfinite(got).all()) and c > 0.999, f"attn_i8 {name}: min cos {c}"
+        out[name] = dict(shape=(b, s, cfg.hidden_size), valid_len=vl, causal=causal,
+                         launches=launches, min_row_cos=c,
+                         max_abs_err=float((g - w).abs().max()))
+    return out
+
+
+def long_sequence(eng) -> dict:
+    """Phase: two W8A8 layers at ViT-L/14-336's widths and its unpadded
+    S = 577 through ``run_blocks``, over the L/14-336 engine's first two
+    layers: the flat gate fails at 577, so the route is the staged one (as
+    the JAX package's would be at that S), with the o projection on the q4_0
+    source; kernels against the plain versions."""
+    import torch
+
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.models.transformer import run_blocks
+
+    b, s, n_layer = 2, 577, 2
+    cfg = eng.config.vision
+    layers = {k: v[:n_layer] for k, v in eng.params["vision"]["layers"].items()}
     rng = np.random.default_rng(3)
-    per = [block_weights(rng, h, f, device) for _ in range(n_layer)]
-    st = lambda k: torch.stack([p[k] for p in per])  # noqa: E731
-    w8 = lambda c, ws: W8Tensor(c8=st(c), ws=st(ws), qtype=GGMLType.F16)  # noqa: E731
-    layers = {"ln1_w": st("lnw"), "ln1_b": st("lnb"), "qkv_w": w8("qw8", "qws"),
-              "qkv_b": st("qb"), "o_w": w8("ow8", "ows"), "o_b": st("ob"),
-              "ln2_w": st("lnw"), "ln2_b": st("lnb"), "up_w": w8("up8", "upws"),
-              "up_b": st("upb"), "down_w": w8("dn8", "dnws"), "down_b": st("dnb")}
-    x = torch.from_numpy(rng.normal(0, 1, (b, s, h)).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.normal(0, 1, (b, s, cfg.hidden_size)).astype(np.float32)).cuda()
     x = x.to(torch.bfloat16)
-    kw = dict(n_head=nh, eps=1e-5, use_gelu=False)
+    kw = dict(n_head=cfg.n_head, eps=cfg.eps, use_gelu=False)
     ops.reset_launches()
     got = run_blocks(x, layers, **kw)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in ops.launches().items() if v}
-    want = run_blocks(x, layers, kernels=False, **kw)
+    launches = {k: v for k, v in ops.launches().items() if k in PATH_WRAPPERS}
+    want = run_blocks(x.float(), layers, kernels=False, **kw)
     c = cos(got, want)
     assert bool(torch.isfinite(got).all()) and c > 0.999, f"L/14-336 stack: cos {c}"
-    assert launches.get("attn_block") == n_layer, launches
-    return dict(shape=(b, s, h, nh, f), layers=n_layer, cos=c, launches=launches,
-                max_abs_err=float((got.float() - want.float()).abs().max()))
+    expect = {k: n_layer * v for k, v in layer_launches("staged", "block", b * s).items()}
+    assert launches == expect, f"L/14-336 stack: launches {launches}, expected {expect}"
+    return dict(shape=(b, s, cfg.hidden_size, cfg.n_head, cfg.n_intermediate), layers=n_layer,
+                cos=c, launches=launches, max_abs_err=float((got.float() - want).abs().max()))
+
+
+def check_staged_kernels(device) -> dict:
+    """Phase 3b: the wrappers of the staged routes against their plain
+    versions on the card, at the shapes the new paths give them, and device
+    preprocessing against the host path.  Returns the inputs and errors
+    that the timing phase uses."""
+    import torch
+
+    from clip_tpu_torch.ops import actquant as aq
+    from clip_tpu_torch.ops import attention as at
+    from clip_tpu_torch.ops.device_preprocess import device_preprocess
+    from clip_tpu_torch.preprocess import preprocess_batch
+
+    rng = np.random.default_rng(4)
+    out: dict = {"args": {}}
+    fails: list[str] = []
+
+    def expect(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+
+    def codes_close(name, codes, sx, pc, psx, rtol) -> int:
+        """Row-quant outputs: scales within ``rtol``, codes within 1 and all
+        but a 1e-4 share equal.  Records the largest difference of the
+        dequantized values (codes x scales) as ``<name>_err``; returns the
+        number of codes that differ."""
+        sx, psx = sx.reshape(-1), psx.reshape(-1)
+        expect(bool(torch.allclose(sx, psx, rtol=rtol, atol=0)),
+               f"{name}: scales differ by {float(((sx - psx) / psx).abs().max())}")
+        codes, pc = codes.reshape(sx.numel(), -1), pc.reshape(sx.numel(), -1)
+        diff = (codes.int() - pc.int()).abs()
+        n = int((diff > 0).sum())
+        expect(int(diff.max()) <= 1 and n <= 1e-4 * diff.numel(),
+               f"{name}: {n} codes differ, by up to {int(diff.max())}")
+        deq = (codes.float() * sx[:, None] - pc.float() * psx[:, None]).abs().max()
+        out[name.replace(" ", "_") + "_err"] = float(deq)
+        return n
+
+    def x_bf16(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device).bfloat16()
+
+    # lnq at ViT-H/14's MLP input (64 x 264 rows, H 1280) and ViT-L/14-336's
+    # attention input (2 x 584 rows, H 1024)
+    for name, (rows, h) in {"h14": (64 * 264, 1280), "l14_336": (2 * 584, 1024)}.items():
+        x = x_bf16(rows, h)
+        w, b = vec(rng, h, device, 1.0, 0.1), vec(rng, h, device, 0.0, 0.1)
+        codes, sx = aq.lnq(x, w, b, 1e-5)
+        pc, psx = aq.lnq_plain(x, w, b, 1e-5)
+        out[f"lnq_{name}_mismatch"] = codes_close(f"lnq {name}", codes, sx, pc, psx, 1e-6)
+        out["args"][f"lnq_{name}"] = (x, w, b)
+        if name == "h14":
+            c_h14, s_h14 = codes, sx
+    # gemm_gq: gelu_quick at ViT-H/14's up GEMM, none at ViT-B/32's qkv GEMM
+    up8, upws = w8(rng, 5120, 1280, device)
+    upb = vec(rng, 5120, device)
+    gq = aq.gemm_gq(c_h14, s_h14, up8, upws, upb, "gelu_quick")
+    gq_p = aq.gemm_gq_plain(c_h14, s_h14, up8, upws, upb, "gelu_quick")
+    out["gemm_gq_h14_mismatch"] = codes_close("gemm_gq h14", *gq, *gq_p, 1e-5)
+    c2_h14, s2_h14 = gq
+    out["args"]["gemm_gq_h14"] = (c_h14, s_h14, up8, upws, upb, "gelu_quick")
+    c_b32, s_b32 = aq.lnq(x_bf16(64 * 50, 768), vec(rng, 768, device, 1.0, 0.1),
+                          vec(rng, 768, device), 1e-5)
+    qw8, qws = w8(rng, 2304, 768, device)
+    qb = vec(rng, 2304, device)
+    gq = aq.gemm_gq(c_b32, s_b32, qw8, qws, qb, "none")
+    gq_p = aq.gemm_gq_plain(c_b32, s_b32, qw8, qws, qb, "none")
+    out["gemm_gq_b32_none_mismatch"] = codes_close("gemm_gq b32 none", *gq, *gq_p, 1e-6)
+    out["args"]["gemm_gq_b32_none"] = (c_b32, s_b32, qw8, qws, qb, "none")
+    # w8a8_pre: ViT-H/14's down GEMM (over the gemm_gq codes) and
+    # ViT-L/14-336's qkv GEMM; the int32 accumulator and the rescale are
+    # exact, so bit-equal
+    dn8, dnws = w8(rng, 1280, 5120, device)
+    l_codes, l_sx = aq.lnq(*out["args"]["lnq_l14_336"], 1e-5)
+    lq8, lqws = w8(rng, 3072, 1024, device)
+    for name, args in {"h14_down": (c2_h14, s2_h14, dn8, dnws),
+                       "l14_336_qkv": (l_codes, l_sx, lq8, lqws)}.items():
+        got, want = aq.w8a8_pre(*args), aq.w8a8_pre_plain(*args)
+        expect(torch.equal(got, want), f"w8a8_pre {name}: max diff "
+               f"{float((got.float() - want.float()).abs().max())}")
+        out["args"][f"w8a8_pre_{name}"] = args
+    # mlp_gq at ViT-B/32's MLP widths (64 x 50 rows)
+    mu8, muws = w8(rng, 3072, 768, device)
+    md8, mdws = w8(rng, 768, 3072, device)
+    margs = (c_b32, s_b32, mu8, muws, vec(rng, 3072, device), md8, mdws)
+    got, want = aq.mlp_gq(*margs), aq.mlp_gq_plain(*margs, out_dtype=torch.float32)
+    c = cos(got, want)
+    expect(c > 0.999 and bool(torch.isfinite(got).all()), f"mlp_gq b32: cos {c}")
+    out["mlp_gq_b32_cos"] = c
+    out["mlp_gq_b32_err"] = float((got.float() - want).abs().max())
+    out["args"]["mlp_gq_b32"] = margs
+    # mha_qkv_i8 at the attn_i8 stacks' shapes, both output forms
+    for name, (b, s, nh, dh, vl, causal) in {
+            "vision": (64, 50, 12, 64, None, False), "text": (8, 80, 8, 64, None, True),
+            "l14_336": (2, 584, 16, 64, 577, False)}.items():
+        codes = torch.from_numpy(rng.integers(-127, 128, (b, s, 3 * nh * dh), dtype=np.int8))
+        codes = codes.to(device)
+        scales = torch.from_numpy(rng.uniform(0.01, 0.03, (b, s)).astype(np.float32)).to(device)
+        kw = dict(n_head=nh, scale=dh ** -0.5, causal=causal, valid_len=vl)
+        got = at.mha_qkv_i8(codes, scales, **kw).float()
+        want = at.mha_qkv_i8_plain(codes, scales, **kw).float()
+        err = float((got - want).abs().max())
+        c = cos(got, want)
+        expect(c > 0.9999 and bool(torch.allclose(got, want, rtol=1.6e-2, atol=1e-3)),
+               f"mha_qkv_i8 {name}: cos {c}, max err {err}")
+        out[f"mha_qkv_i8_{name}_err"] = err
+        qc, qs = at.mha_qkv_i8(codes, scales, quant_out=True, **kw)
+        pqc, pqs = at.mha_qkv_i8_plain(codes, scales, quant_out=True, **kw)
+        out[f"mha_qkv_i8_{name}_quant_mismatch"] = codes_close(
+            f"mha_qkv_i8 {name} quant_out", qc, qs, pqc, pqs, 1e-4)
+        out["args"][f"mha_qkv_i8_{name}"] = (codes, scales, kw)
+    # device preprocessing against the host path, in pixel space
+    mean = np.array([0.48145466, 0.4578275, 0.40821073])
+    std = np.array([0.26862954, 0.26130258, 0.27577711])
+    imgs = (np.random.default_rng(6).random((8, 256, 320, 3)) * 255).astype(np.uint8)
+    dev = device_preprocess(imgs, 224, mean, std, device=device).cpu().numpy()
+    host = preprocess_batch(list(imgs), 224, mean, std)
+    out["device_preprocess_err"] = float(np.abs(dev - host).max())
+    expect(out["device_preprocess_err"] < 5e-4,
+           f"device preprocessing: max err {out['device_preprocess_err']}")
+    if fails:
+        raise AssertionError("staged kernel checks failed:\n  " + "\n  ".join(fails))
+    torch.cuda.synchronize()
+    return out
 
 
 def qmatmul_bytes(m: int, w) -> int:
@@ -493,6 +762,158 @@ def kernel_bounds(chk: dict) -> dict:
     for fmt, (xq, wq) in chk["qmatmul_args"].items():
         m, k = xq.shape
         out[f"qmatmul_{fmt}"] = bound(qmatmul_bytes(m, wq), bf16_flops=2 * m * wq.shape[0] * k)
+    return out
+
+
+def staged_bounds(schk: dict) -> dict:
+    """Bounds of the staged routes' kernels at the shapes they were timed at:
+    each input read once, each output written once, int8 products at the
+    int8 peak and the p.V products at the bf16 peak."""
+    a = schk["args"]
+    x, _, _ = a["lnq_h14"]
+    rows, h = x.shape
+    out = {"lnq": bound(rows * h * 2 + rows * h + 4 * rows + 8 * h)}
+    codes, _, w8_, _, _, _ = a["gemm_gq_h14"]
+    m, k = codes.shape
+    n = w8_.shape[0]
+    out["gemm_gq"] = bound(m * k + 4 * m + n * k + 8 * n + m * n + 4 * m,
+                           int8_ops=2 * m * n * k)
+    codes, _, up8, _, _, _, _ = a["mlp_gq_b32"]
+    m, h = codes.shape
+    n = up8.shape[0]
+    out["mlp_gq"] = bound(m * h + 4 * m + 2 * n * h + 8 * n + 4 * h + 2 * m * h,
+                          int8_ops=4 * m * n * h)
+    codes, _, kw = a["mha_qkv_i8_vision"]
+    b, s, h3 = codes.shape
+    out["mha_qkv_i8"] = bound(b * s * h3 + 4 * b * s + 2 * b * s * h3 // 3,
+                              int8_ops=2 * b * s * s * h3 // 3, bf16_flops=2 * b * s * s * h3 // 3)
+    return out
+
+
+def staged_timing(schk: dict, engines: dict) -> dict:
+    """Phase: device times (CUDA-graph replay) of the staged routes' kernels
+    and their plain versions at the shapes the new paths give them, SDPA on
+    the dequantized bf16 q, k, v beside ``mha_qkv_i8`` (the nearest single
+    call; not the same function), and the cut towers: ViT-H/14 at B = 64,
+    ViT-L/14-336 at B = 1 and 4, whole and per layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_tpu_torch.models.transformer import run_blocks
+    from clip_tpu_torch.models.vision import encode_image, pad_once
+    from clip_tpu_torch.ops import actquant as aq
+    from clip_tpu_torch.ops import attention as at
+
+    a = schk["args"]
+    res: dict = {}
+    for name in ("lnq_h14", "lnq_l14_336"):
+        x, w, b = a[name]
+        res[f"{name}_ms"] = graph_ms(lambda: aq.lnq(x, w, b, 1e-5))
+    x, w, b = a["lnq_h14"]
+    res["lnq_h14_plain_ms"] = graph_ms(lambda: aq.lnq_plain(x, w, b, 1e-5), iters=10)
+    for name in ("gemm_gq_h14", "gemm_gq_b32_none"):
+        res[f"{name}_ms"] = graph_ms(lambda: aq.gemm_gq(*a[name]))
+    res["gemm_gq_h14_plain_ms"] = graph_ms(lambda: aq.gemm_gq_plain(*a["gemm_gq_h14"]), iters=5)
+    for name in ("w8a8_pre_h14_down", "w8a8_pre_l14_336_qkv"):
+        res[f"{name}_ms"] = graph_ms(lambda: aq.w8a8_pre(*a[name]))
+    res["mlp_gq_b32_ms"] = graph_ms(lambda: aq.mlp_gq(*a["mlp_gq_b32"]))
+    res["mlp_gq_b32_plain_ms"] = graph_ms(lambda: aq.mlp_gq_plain(*a["mlp_gq_b32"]), iters=10)
+    for name in ("vision", "text", "l14_336"):
+        codes, scales, kw = a[f"mha_qkv_i8_{name}"]
+        res[f"mha_qkv_i8_{name}_ms"] = graph_ms(lambda: at.mha_qkv_i8(codes, scales, **kw))
+        res[f"mha_qkv_i8_{name}_quant_out_ms"] = graph_ms(
+            lambda: at.mha_qkv_i8(codes, scales, quant_out=True, **kw))
+        b, s, h3 = codes.shape
+        nh = kw["n_head"]
+        deq = (codes.float() * scales[..., None]).to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in deq.reshape(b, s, 3, nh, -1).permute(2, 0, 3, 1, 4))
+        mask = None
+        if kw["valid_len"] is not None:  # keys >= valid_len masked in every row
+            mask = (torch.arange(s, device=codes.device) < kw["valid_len"]).expand(1, 1, s, s)
+        try:
+            res[f"sdpa_i8_{name}_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=kw["causal"], scale=kw["scale"]))
+        except RuntimeError as e:
+            res[f"sdpa_i8_{name}_ms"] = f"not measured: {str(e).splitlines()[0]}"
+    codes, scales, kw = a["mha_qkv_i8_vision"]
+    res["mha_qkv_i8_vision_plain_ms"] = graph_ms(
+        lambda: at.mha_qkv_i8_plain(codes, scales, **kw), iters=10)
+
+    # the cut towers: on pixels already on the card, and their stacks alone
+    for name, eng, batches in (("h14", engines["h14_staged_mlp"], (64,)),
+                               ("l14_336", engines["l14_336_staged_attn"], (1, 4))):
+        cfg = eng.config.vision
+        layers = eng.params["vision"]["layers"]
+        s_real = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        for b in batches:
+            px = torch.randn(b, cfg.image_size, cfg.image_size, 3, device="cuda")
+            px = px.to(torch.bfloat16)
+
+            def tower(eng=eng, px=px):
+                with torch.inference_mode():
+                    return encode_image(eng.params["vision"], cfg, px, use_gelu=False,
+                                        compute_dtype=torch.bfloat16, **eng.tower_flags())
+
+            sp = pad_once(b, s_real, cfg, True)
+            x = torch.randn(b, sp, cfg.hidden_size, device="cuda").to(torch.bfloat16)
+
+            def stack(eng=eng, x=x, sp=sp):
+                with torch.inference_mode():
+                    return run_blocks(x, layers, n_head=cfg.n_head, eps=cfg.eps, use_gelu=False,
+                                      valid_len=s_real if sp != s_real else None,
+                                      **eng.tower_flags())
+
+            tower_ms = [cuda_ms(tower, iters=3, warmup=1 if i == 0 else 0) for i in range(3)]
+            stack_ms = cuda_ms(stack, iters=3, warmup=1)
+            res[f"tower_{name}_b{b}"] = {
+                "layers": cfg.n_layer, "seq": sp, "valid_len": s_real,
+                "tower_median_ms": statistics.median(tower_ms), "tower_runs_ms": tower_ms,
+                "stack_ms": stack_ms, "ms_per_layer": stack_ms / cfg.n_layer}
+            if b == batches[-1]:
+                res[f"tower_{name}_b{b}_profile"] = profile_kernels(tower)
+    return res
+
+
+def route_difference(eng) -> dict:
+    """Phase: what the route change does at ViT-L/14-336 on the card, one
+    layer of the L/14-336 engine at B = 1 and 4.  The reference is the
+    JAX package's route in plain float32 (the padded S = 584, valid 577,
+    staged attention, and at B = 1 the o projection on the q4_0 source);
+    beside it the port's staged route in bf16 with its kernels, and the
+    route the port took before it copied the route gates: the fused
+    attention block at S = 577.  cos and max error on the 577 real rows, and
+    the cos of what the layer adds to its input (output - x), which the
+    residual does not dominate."""
+    import torch
+
+    from clip_tpu_torch.models.transformer import block, layer
+    from clip_tpu_torch.ops import actquant as aq
+    from clip_tpu_torch.ops import attention as at
+
+    cfg = eng.config.vision
+    lp = layer(eng.params["vision"]["layers"], 0)
+    q8, o8, up, dn = (lp[k] for k in ("qkv_w", "o_w", "up_w", "down_w"))
+    rng = np.random.default_rng(7)
+    out = {}
+    for b in (1, 4):
+        x = rng.normal(0, 1, (b, 584, cfg.hidden_size)).astype(np.float32)
+        x[:, 577:] = 0.0
+        x = torch.from_numpy(x).cuda()
+        kw = dict(n_head=cfg.n_head, eps=cfg.eps, use_gelu=False)
+        ref = block(x, lp, kernels=False, valid_len=577, **kw)[:, :577]
+        new = block(x.bfloat16(), lp, valid_len=577, **kw)[:, :577].float()
+        x577 = x[:, :577].bfloat16().contiguous()
+        old = at.attn_block(x577, lp["ln1_w"], lp["ln1_b"], q8.c8, q8.ws, lp["qkv_b"], o8.c8,
+                            o8.ws, lp["o_b"], n_head=cfg.n_head,
+                            scale=(cfg.hidden_size // cfg.n_head) ** -0.5, eps=cfg.eps)
+        old = aq.mlp_lnq(old.reshape(b * 577, -1), lp["ln2_w"], lp["ln2_b"], up.c8, up.ws,
+                         lp["up_b"], dn.c8, dn.ws, lp["down_b"], eps=cfg.eps)
+        old = old.reshape(b, 577, -1).float()
+        torch.cuda.synchronize()
+        x0 = x[:, :577]
+        out[f"b{b}"] = {f"{n}_vs_ref": dict(cos=cos(v, ref), layer_delta_cos=cos(v - x0, ref - x0),
+                                            max_abs_err=float((v - ref).abs().max()))
+                        for n, v in (("staged_kernels", new), ("fused_s577_kernels", old))}
     return out
 
 
@@ -645,7 +1066,8 @@ def main() -> int:
 
     # the checkpoints are written by worker processes while nvcc builds
     with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
-            max_workers=len(PATHS), mp_context=multiprocessing.get_context("spawn")) as pool:
+            max_workers=len(PATHS) + len(CUT_PATHS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
         ckpts = write_checkpoints(pool, tmp)
 
         t0 = time.perf_counter()
@@ -666,54 +1088,94 @@ def main() -> int:
         summary.update({k: v for k, v in chk.items() if k.endswith("_err")})
         phase_line("kernels", t0, **summary)
 
+        t0 = time.perf_counter()
+        schk = check_staged_kernels(device)
+        phase_line("staged_kernels", t0, **{k: v for k, v in schk.items() if k != "args"})
+
         paths: dict = {}
-        for name in PATHS:
+        for name, (ckpt, engine_kw, drives) in PATH_RUNS.items():
             t0 = time.perf_counter()
-            path = ckpts[name].result()
+            path = ckpts[ckpt].result()
             wait_s = time.perf_counter() - t0
-            p = paths[name] = run_path(name, path)
-            phase_line(f"path_{name}", t0, route=p["route"], launches=p["launches"],
-                       expected=p["expect"], checkpoint_wait_s=round(wait_s, 2),
-                       load_s=round(p["load_s"], 2), run_s=round(p["run_s"], 2),
+            p = paths[name] = run_path(name, path, engine_kw, drives)
+            phase_line(f"path_{name}", t0, route=p["route"], flags=p["engine"].tower_flags(),
+                       launches=p["launches"], expected=p["expect"],
+                       checkpoint_wait_s=round(wait_s, 2), load_s=round(p["load_s"], 2),
+                       run_s={k: round(v, 2) for k, v in p["run_s"].items()},
                        plain_s=round(p["plain_s"], 2),
-                       **{k: v for k, v in p.items() if k.endswith(("cos", "zsl", "plain"))})
-            if name not in ("q4_0", "f16"):
-                del p["engine"]
+                       **{k: v for k, v in p.items()
+                          if k.endswith(("cos", "zsl", "plain", "max_diff"))})
+    engines = {n: p.pop("engine") for n, p in paths.items()}
+    for name in ("q5_1", "q8_0", "b32_up_gq"):
+        del engines[name]
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ls = long_sequence(device)
+    ls = long_sequence(engines["l14_336_staged_attn"])
     phase_line("long_sequence", t0, **ls)
 
     t0 = time.perf_counter()
-    tm = timing(device, chk, {n: paths[n]["engine"] for n in ("q4_0", "f16")})
+    i8 = attn_i8_stacks(engines)
+    phase_line("attn_i8_stacks", t0, **i8)
+
+    t0 = time.perf_counter()
+    phase_line("route_difference", t0, **route_difference(engines["l14_336_staged_attn"]))
+
+    t0 = time.perf_counter()
+    tm = timing(device, chk, {n: engines[n] for n in ("q4_0", "f16")})
     phase_line("timing", t0, card=smi, **tm)
 
-    bounds = kernel_bounds(chk)
+    t0 = time.perf_counter()
+    st = staged_timing(schk, engines)
+    phase_line("staged_timing", t0, card=smi, **st)
+
+    bounds = {**kernel_bounds(chk), **staged_bounds(schk)}
     v = tm["vision"]
 
-    def row(name, source, replaces, path, ms, plain_ms, err, bound_key, library_ms=None):
+    def row(name, source, replaces, launches, ms, plain_ms, err, bound_key, library_ms=None):
         ms_bound, by = bounds[bound_key]
         lib = library_ms if isinstance(library_ms, float) else None
         return dict(name=name, route="cuda", source=f"clip_tpu_torch/csrc/{source}",
-                    replaces=f"clip_tpu/ops/{replaces}", launches=paths[path]["launches"][name],
+                    replaces=f"clip_tpu/ops/{replaces}", launches=launches,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=ms_bound, bound_by=by,
                     library_ms=lib)
 
+    def main_launches(path, name):
+        return paths[path]["launches"]["main"][name]
+
     kernels = [
-        row("attn_block", "attention.cu", "attention_pallas.py:484", "q4_0", v["attn_block_ms"],
-            v["attn_block_plain_ms"], chk["vision"]["attn_block_err"], "attn_block"),
-        row("mlp_lnq", "actquant.cu", "actquant_pallas.py:362", "q4_0", v["mlp_lnq_ms"],
-            v["mlp_lnq_plain_ms"], chk["vision"]["mlp_lnq_err"], "mlp_lnq"),
-        row("qmatmul_q4", "qmatmul.cu", "qmatmul_pallas.py:69", "q4_0", tm["qmatmul_q4_0_ms"],
+        row("attn_block", "attention.cu", "attention_pallas.py:484",
+            main_launches("q4_0", "attn_block"), v["attn_block_ms"], v["attn_block_plain_ms"],
+            chk["vision"]["attn_block_err"], "attn_block"),
+        row("mlp_lnq", "actquant.cu", "actquant_pallas.py:362", main_launches("q4_0", "mlp_lnq"),
+            v["mlp_lnq_ms"], v["mlp_lnq_plain_ms"], chk["vision"]["mlp_lnq_err"], "mlp_lnq"),
+        row("qmatmul_q4", "qmatmul.cu", "qmatmul_pallas.py:69",
+            main_launches("q4_0", "qmatmul_q4"), tm["qmatmul_q4_0_ms"],
             tm["qmatmul_q4_0_plain_ms"], chk["qmatmul_q4_0_m64_err"], "qmatmul_q4_0"),
-        row("qmatmul_q5", "qmatmul.cu", "qmatmul_pallas.py:103", "q5_1", tm["qmatmul_q5_1_ms"],
+        row("qmatmul_q5", "qmatmul.cu", "qmatmul_pallas.py:103",
+            main_launches("q5_1", "qmatmul_q5"), tm["qmatmul_q5_1_ms"],
             tm["qmatmul_q5_1_plain_ms"], max(chk["qmatmul_q5_1_m64_err"],
                                              chk["qmatmul_q5_0_m64_err"]), "qmatmul_q5_1"),
-        row("qmatmul_q8", "qmatmul.cu", "qmatmul_pallas.py:151", "q8_0", tm["qmatmul_q8_0_ms"],
+        row("qmatmul_q8", "qmatmul.cu", "qmatmul_pallas.py:151",
+            main_launches("q8_0", "qmatmul_q8"), tm["qmatmul_q8_0_ms"],
             tm["qmatmul_q8_0_plain_ms"], chk["qmatmul_q8_0_m64_err"], "qmatmul_q8_0"),
-        row("mha_qkv", "attention.cu", "attention_pallas.py:1014", "f16",
-            tm["mha_qkv_vision_ms"], tm["mha_qkv_vision_plain_ms"],
-            chk["mha_qkv_vision_err"], "mha_qkv_vision", tm["sdpa_vision_ms"]),
+        row("mha_qkv", "attention.cu", "attention_pallas.py:1014",
+            main_launches("f16", "mha_qkv"), tm["mha_qkv_vision_ms"],
+            tm["mha_qkv_vision_plain_ms"], chk["mha_qkv_vision_err"], "mha_qkv_vision",
+            tm["sdpa_vision_ms"]),
+        row("lnq", "actquant.cu", "actquant_pallas.py:71",
+            main_launches("h14_staged_mlp", "lnq"), st["lnq_h14_ms"], st["lnq_h14_plain_ms"],
+            schk["lnq_h14_err"], "lnq"),
+        row("gemm_gq", "actquant.cu", "actquant_pallas.py:172",
+            main_launches("h14_staged_mlp", "gemm_gq"), st["gemm_gq_h14_ms"],
+            st["gemm_gq_h14_plain_ms"], schk["gemm_gq_h14_err"], "gemm_gq"),
+        row("mlp_gq", "actquant.cu", "actquant_pallas.py:296",
+            main_launches("b32_up_gq", "mlp_gq"), st["mlp_gq_b32_ms"], st["mlp_gq_b32_plain_ms"],
+            schk["mlp_gq_b32_err"], "mlp_gq"),
+        row("mha_qkv_i8", "attention.cu", "attention_pallas.py:278",
+            sum(r["launches"]["mha_qkv_i8"] for r in i8.values()), st["mha_qkv_i8_vision_ms"],
+            st["mha_qkv_i8_vision_plain_ms"], schk["mha_qkv_i8_vision_err"], "mha_qkv_i8",
+            st["sdpa_i8_vision_ms"]),
     ]
     say(f"[total] {time.perf_counter() - T_START:.2f}s")
     say(json.dumps({"kernels": kernels}))

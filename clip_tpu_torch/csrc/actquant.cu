@@ -1,9 +1,25 @@
 // Hopper counterpart of the JAX package's
 //   clip_tpu/ops/actquant_pallas.py:362 mlp_lnq_pallas (bodies _mlp_half:335,
 //   _mlp_body:274),
-// and the building blocks it shares with the attention block
+//   clip_tpu/ops/actquant_pallas.py:71 lnq_pallas (ctt_lnq below),
+//   clip_tpu/ops/actquant_pallas.py:172 gemm_gq_pallas (ctt_gemm_i8 with a
+//     GELU or f32-bias epilogue, then ctt_requant),
+//   clip_tpu/ops/actquant_pallas.py:296 mlp_gq_pallas (gemm_gq, then
+//     ctt_gemm_i8 with the PRE epilogue),
+// and of the XLA-level w8a8_pre (actquant_pallas.py:658; the PRE epilogue),
+// with the building blocks they share with the attention block
 // (attention.cu): the LN + row-quant prologue, the int8 GEMM with its
 // epilogues, and the row requant.
+//
+// The TPU's gemm_gq and mlp_gq keep the weights resident in VMEM and the
+// [rows, 4H] up output in VMEM up to the requant.  Here the requant's row
+// amax spans every output tile of the up GEMM, a reduction across blocks,
+// so the up GEMM writes f32 to device memory and ctt_requant reads it back
+// (rows x 4H x 8 bytes of traffic); the down GEMM then reads the codes.  At
+// ViT-H/14 (64 x 264 rows, 1280 x 5120) the two GEMMs are 2 x 16896 x 1280 x
+// 5120 x 2 = 443 G int8 operations (0.22 ms at 1,979 TOP/s) against 0.69 GB
+// of that f32 round trip plus 0.17 GB of codes (0.26 ms at 3.35 TB/s): bytes
+// bound the chain as built.
 //
 // The TPU kernel keeps both int8 MLP weights resident in VMEM (4.7 MB at
 // ViT-B/32) and runs LN -> quant -> up GEMM -> gelu -> requant -> down GEMM
@@ -121,6 +137,8 @@ enum GemmMode : int {
   kGeluQuick = 2,  // f32 gelu_quick(acc*sx*ws + b)              (MLP up)
   kGeluTanh = 3,   // f32 gelu_tanh(acc*sx*ws + b)               (MLP up)
   kResidBf16 = 4,  // bf16(x + bf16(bf16(acc*sx*ws) + bf16(b)))   (o, down)
+  kPreBf16 = 5,    // bf16(acc*sx*ws)                            (w8a8_pre)
+  kBiasF32 = 6,    // f32 acc*sx*ws + b                          (gemm_gq act=none)
 };
 
 constexpr int BM = 128, BN = 128, BK = 64;
@@ -259,13 +277,16 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M
           const float y1 = __fadd_rn(epi_scale(a1, s, ws[c + 1]), bias[c + 1]);
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
               __floats2bfloat162_rn(y0, y1);
-        } else if (mode == kGeluQuick || mode == kGeluTanh) {
+        } else if (mode == kPreBf16) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+              __floats2bfloat162_rn(epi_scale(a0, s, ws[c]), epi_scale(a1, s, ws[c + 1]));
+        } else if (mode == kGeluQuick || mode == kGeluTanh || mode == kBiasF32) {
           float y0 = __fadd_rn(epi_scale(a0, s, ws[c]), bias[c]);
           float y1 = __fadd_rn(epi_scale(a1, s, ws[c + 1]), bias[c + 1]);
           if (mode == kGeluQuick) {
             y0 = gelu_quick(y0);
             y1 = gelu_quick(y1);
-          } else {
+          } else if (mode == kGeluTanh) {
             y0 = gelu_tanh(y0);
             y1 = gelu_tanh(y1);
           }

@@ -36,6 +36,25 @@
 // S = 640, dh = 80, under the 232,448 B a block may have (161.6 KB at
 // ViT-L/14-336's S = 577).  The wrapper checks the size before the launch.
 //
+// ctt_attention_i8 is the counterpart of
+//   clip_tpu/ops/attention_pallas.py:278 mha_pallas_qkv_i8 (body
+//     _qkv_kernel_flat_i8:215),
+// attention over an int8 qkv projection with per-row f32 scales (as
+// gemm_gq with act=none writes it).  Same block layout: one block per (head,
+// image).  K stays int8 in shared memory (rows of dh / 4 + 1 32-bit words,
+// odd, so 32 lanes reading 32 keys hit 32 banks) and each lane forms its
+// key's q.k dot with __dp4a, exact in int32 as the TPU's int8 MXU dot; the
+// rescale is acc * (sx_q * scale) * sx_k in f32 in that order.  V is
+// dequantized once per block to bf16(code * sx) of its own row.  The
+// softmax, the bf16 p and the f32 p.V follow the bf16 core.  Shared memory:
+// S (dh / 4 + 1) x 4 B of K + S x 4 B of K scales + 4 S x 4 B of p rows +
+// 4 dh B of query codes + S (dh + 2) x 2 B of V: 171.8 KB at S = 640,
+// dh = 80.  At ViT-B/32 (B = 64, S = 50, 12 heads) bytes bound it: 7.4 MB
+// of codes read and 4.9 MB of bf16 written (3.7 us at 3.35 TB/s) against
+// 0.25 G int8 and 0.25 G bf16 operations; like the bf16 core it runs on
+// CUDA cores, one query row per warp at a time, so latency bounds it in
+// practice (see PERF.md).
+//
 // What bounds it at ViT-B/32 (B = 64, S = 50, 12 heads): 4 x S^2 x 64 x 12 x
 // 64 = 0.49 GFLOP (0.5 us at the bf16 tensor-core peak) against 4.9 MB of
 // qkv read and 9.8 MB of f32 output written (4.4 us at 3.35 TB/s), so bytes
@@ -142,6 +161,99 @@ int launch(const void* qkv, void* out, int b, int s, int n_head, int dh, float s
   return (int)cudaGetLastError();
 }
 
+constexpr int kI8Warps = kAttnWarps;
+
+template <typename OutT>
+__global__ void __launch_bounds__(kI8Warps * 32)
+attention_i8_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ sx,
+                    OutT* __restrict__ out, int S, int n_head, int dh, float scale, int causal,
+                    int valid_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int head = blockIdx.x, img = blockIdx.y;
+  const int hl = n_head * dh;
+  const int dw = dh >> 2;       // 32-bit words of codes in one head row
+  const int ldk = dw + 1;       // odd word stride
+  const int ldv = dh + 2;
+  const int dh2 = dh >> 1;
+  int* Ks = reinterpret_cast<int*>(smem_raw);
+  float* Sk = reinterpret_cast<float*>(Ks + S * ldk);
+  float* P = Sk + S;
+  int* Qr = reinterpret_cast<int*>(P + kI8Warps * S);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(Qr + kI8Warps * dw);
+
+  const size_t row0 = (size_t)img * S;
+  for (int r = threadIdx.x; r < S; r += blockDim.x) Sk[r] = sx[row0 + r];
+  for (int idx = threadIdx.x; idx < S * dw; idx += blockDim.x) {
+    const int r = idx / dw, w = idx - r * dw;
+    const int* src = reinterpret_cast<const int*>(qkv + (row0 + r) * 3 * hl + hl + head * dh);
+    Ks[r * ldk + w] = src[w];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < S * dh2; idx += blockDim.x) {
+    const int r = idx / dh2, c2 = idx - r * dh2;
+    const char2 v = reinterpret_cast<const char2*>(qkv + (row0 + r) * 3 * hl + 2 * hl +
+                                                   head * dh)[c2];
+    const float s = Sk[r];
+    reinterpret_cast<__nv_bfloat162*>(Vs + r * ldv)[c2] =
+        __floats2bfloat162_rn(__fmul_rn((float)v.x, s), __fmul_rn((float)v.y, s));
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* p = P + warp * S;
+  int* q = Qr + warp * dw;
+  for (int i = warp; i < S; i += kI8Warps) {
+    const int* qsrc = reinterpret_cast<const int*>(qkv + (row0 + i) * 3 * hl + head * dh);
+    for (int w = lane; w < dw; w += 32) q[w] = qsrc[w];
+    __syncwarp();
+    const float sq = __fmul_rn(Sk[i], scale);
+    float lsum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const int* kr = Ks + j * ldk;
+      int acc = 0;
+      for (int w = 0; w < dw; ++w) acc = __dp4a(q[w], kr[w], acc);
+      const float sc = __fmul_rn(__fmul_rn((float)acc, sq), Sk[j]);
+      const bool masked = j >= valid_len || (causal && j > i);
+      const float e = expf(fminf(fmaxf(sc, -80.f), 80.f) + (masked ? -1e9f : 0.f));
+      p[j] = e;
+      lsum += e;
+    }
+    lsum = ctt::warp_sum(lsum);
+    __syncwarp();
+    for (int j = lane; j < S; j += 32) p[j] = ctt::bf16_round(__fdiv_rn(p[j], lsum));
+    __syncwarp();
+    OutT* orow = out + (row0 + i) * hl + head * dh;
+    for (int d = lane; d < dh2; d += 32) {
+      float ax = 0.f, ay = 0.f;
+      for (int j = 0; j < S; ++j) {
+        const float pj = p[j];
+        const float2 vf = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(Vs + j * ldv)[d]);
+        ax = fmaf(pj, vf.x, ax);
+        ay = fmaf(pj, vf.y, ay);
+      }
+      store2(orow, d, ax, ay);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename OutT>
+int launch_i8(const void* qkv, const float* sx, void* out, int b, int s, int n_head, int dh,
+              float scale, int causal, int valid_len, cudaStream_t stream) {
+  const size_t smem = (size_t)s * (dh / 4 + 1) * 4 + (size_t)s * 4 +
+                      (size_t)kI8Warps * (s * 4 + dh) + (size_t)s * (dh + 2) * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_i8_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(n_head, b);
+  attention_i8_kernel<OutT><<<grid, kI8Warps * 32, smem, stream>>>(
+      static_cast<const int8_t*>(qkv), sx, static_cast<OutT*>(out), s, n_head, dh, scale,
+      causal, valid_len);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -154,6 +266,18 @@ int ctt_attention(const void* qkv, void* out, int b, int s, int n_head, int dh, 
   return out_bf16 ? launch<__nv_bfloat16>(qkv, out, b, s, n_head, dh, scale, causal, valid_len,
                                           stream)
                   : launch<float>(qkv, out, b, s, n_head, dh, scale, causal, valid_len, stream);
+}
+
+// codes int8 [b*s, 3*n_head*dh] (q | k | v, heads contiguous in each third)
+//   with row scales f32 [b*s] -> out [b*s, n_head*dh], f32 (out_bf16 == 0) or
+//   bf16; dh % 4 == 0.  Masks as ctt_attention.
+int ctt_attention_i8(const void* codes, const float* scales, void* out, int b, int s,
+                     int n_head, int dh, float scale, int causal, int valid_len, int out_bf16,
+                     cudaStream_t stream) {
+  return out_bf16 ? launch_i8<__nv_bfloat16>(codes, scales, out, b, s, n_head, dh, scale,
+                                             causal, valid_len, stream)
+                  : launch_i8<float>(codes, scales, out, b, s, n_head, dh, scale, causal,
+                                     valid_len, stream);
 }
 
 }  // extern "C"

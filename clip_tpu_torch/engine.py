@@ -8,9 +8,13 @@ default (``device="cuda:0"``) and raises if no card is present; pass
 
 As in the JAX engine, batches are padded up to power-of-two buckets, text is
 padded to the model's full context, and a quantized checkpoint's layer
-weights are re-quantized to per-channel int8 at load (the W8A8 route); an
-f16 or f32 checkpoint keeps its layer weights dense in the compute dtype
-(the dense route).  ``route`` says which one a checkpoint took.
+weights are re-quantized to per-channel int8 at load, keeping their packed
+source (the W8A8 route); an f16 or f32 checkpoint keeps its layer weights
+dense in the compute dtype (the dense route).  ``route`` says which one a
+checkpoint took.  On the W8A8 route the engine passes the JAX engine's TPU
+flags to the towers: ``lnq_fuse`` (default on) and, where it is off, the
+``up_gq`` MLP.  A batch of uint8 images of one shape is preprocessed on the
+device by default (``ops.device_preprocess``), as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from .models.params import load_params
 from .models.transformer import route
 from .models.text import encode_text
 from .models.vision import encode_image
+from .ops.device_preprocess import make_device_preprocess
 from .preprocess import load_image, preprocess_batch
 from .tokenizer import ClipTokenizer
 
@@ -68,11 +73,16 @@ class ClipEngine:
     ``kernels=False`` runs the plain PyTorch versions of the kernels on any
     device: the reference a card's kernels are held against.  On a card the
     kernels take bfloat16 (the default compute dtype there); the CPU
-    defaults to float32."""
+    defaults to float32.
+
+    ``lnq_fuse`` (W8A8 route only): ``None`` takes the JAX engine's TPU
+    default, on; ``False`` runs LN in the compute dtype ahead of the
+    projections and, on a card, the ``up_gq`` MLP (``_upgq_active``, as
+    ``clip_tpu/engine.py:279-288, 394-404``)."""
 
     def __init__(self, model_path: str, *, device: str | torch.device | None = None,
                  compute_dtype: str | None = None, kernels: bool = True,
-                 verbosity: int = 1):
+                 lnq_fuse: bool | None = None, verbosity: int = 1):
         self.device = torch.device("cuda:0" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' to run the "
@@ -97,8 +107,13 @@ class ClipEngine:
         routes = {route(self.params[t]["layers"]) for t in ("text", "vision")
                   if t in self.params}
         self.route = "/".join(sorted(routes))
-        _log(verbosity, 1, "route: %s, compute dtype %s, kernels %s", self.route,
-             compute_dtype, "on" if kernels else "off (plain versions)")
+        w8a8 = "w8a8" in routes
+        self.lnq_fuse = w8a8 and (True if lnq_fuse is None else bool(lnq_fuse))
+        self.up_gq = w8a8 and self.device.type == "cuda"
+        _log(verbosity, 1, "route: %s, compute dtype %s, kernels %s, lnq_fuse %s, up_gq %s",
+             self.route, compute_dtype, "on" if kernels else "off (plain versions)",
+             self.lnq_fuse, self._upgq_active)
+        self._prep_cache: dict = {}
 
         self.tokenizer: ClipTokenizer | None = None
         if self.config.has_text:
@@ -108,6 +123,15 @@ class ClipEngine:
             n = len(tokens)
             self.tokenizer = ClipTokenizer(tokens, bos_id=min(49406, n - 2),
                                            eos_id=min(49407, n - 1))
+
+    @property
+    def _upgq_active(self) -> bool:
+        """The ``up_gq`` MLP runs only where the lnq producers are off."""
+        return self.up_gq and not self.lnq_fuse
+
+    def tower_flags(self) -> dict:
+        """The W8A8 route flags the engine passes to both towers."""
+        return dict(lnq_fuse=self.lnq_fuse, up_gq=self._upgq_active)
 
     @property
     def projection_dim(self) -> int:
@@ -171,14 +195,25 @@ class ClipEngine:
                 self.params["text"], self.config.text,
                 torch.from_numpy(ids).to(self.device), torch.from_numpy(lengths).to(self.device),
                 use_gelu=self.config.use_gelu, normalize=normalize,
-                compute_dtype=self.compute_dtype, kernels=self.kernels)
+                compute_dtype=self.compute_dtype, kernels=self.kernels, **self.tower_flags())
             out = out[:b].to(torch.float32).cpu().numpy()
         return out[0] if single else out
 
+    def _encode_pixels(self, px: torch.Tensor, normalize: bool) -> torch.Tensor:
+        return encode_image(self.params["vision"], self.config.vision,
+                            px.to(self.compute_dtype), use_gelu=self.config.use_gelu,
+                            normalize=normalize, compute_dtype=self.compute_dtype,
+                            kernels=self.kernels, **self.tower_flags())
+
     def encode_image(self, images, *, normalize: bool = True,
-                     preprocessed: bool | None = None) -> np.ndarray:
+                     preprocessed: bool | None = None,
+                     device_preprocess: bool = True) -> np.ndarray:
         """Encode image(s): file path(s), uint8 arrays, or preprocessed float
-        NHWC batches.  Returns [D] or [B, D]."""
+        NHWC batches.  Returns [D] or [B, D].
+
+        uint8 images that share one shape are preprocessed on the device,
+        ahead of the encode (``device_preprocess=False`` forces the host
+        bicubic), as the JAX engine does (``clip_tpu/engine.py:602-647``)."""
         if self.config.vision is None:
             raise RuntimeError("this checkpoint has no vision encoder")
         single = isinstance(images, (str, np.ndarray)) and (
@@ -189,7 +224,8 @@ class ClipEngine:
         if n_in > _BUCKETS[-1]:
             return np.concatenate([
                 self.encode_image(images[i:i + _BUCKETS[-1]], normalize=normalize,
-                                  preprocessed=preprocessed)
+                                  preprocessed=preprocessed,
+                                  device_preprocess=device_preprocess)
                 for i in range(0, n_in, _BUCKETS[-1])], axis=0)
         if isinstance(images, np.ndarray) and images.ndim == 4 and images.dtype != np.uint8:
             pixels = np.asarray(images, np.float32)
@@ -197,6 +233,10 @@ class ClipEngine:
             arrs = [self.load_image(im) if isinstance(im, str) else im for im in images]
             if preprocessed or (arrs and arrs[0].dtype != np.uint8):
                 pixels = np.stack([np.asarray(a, np.float32) for a in arrs])
+            elif (device_preprocess and arrs
+                  and all(a.ndim == 3 and a.shape == arrs[0].shape for a in arrs)):
+                return self._encode_image_raw(np.stack(arrs), normalize=normalize,
+                                              single=single)
             else:
                 pixels = self.preprocess(arrs)
         b = pixels.shape[0]
@@ -205,10 +245,26 @@ class ClipEngine:
             pixels = np.concatenate([pixels, np.repeat(pixels[-1:], bb - b, axis=0)], axis=0)
         with torch.inference_mode():
             px = torch.from_numpy(np.ascontiguousarray(pixels)).to(self.device)
-            out = encode_image(self.params["vision"], self.config.vision,
-                               px.to(self.compute_dtype), use_gelu=self.config.use_gelu,
-                               normalize=normalize, compute_dtype=self.compute_dtype,
-                               kernels=self.kernels)
+            out = self._encode_pixels(px, normalize)
+            out = out[:b].to(torch.float32).cpu().numpy()
+        return out[0] if single else out
+
+    def _encode_image_raw(self, imgs_u8: np.ndarray, *, normalize: bool,
+                          single: bool) -> np.ndarray:
+        """uint8 ``[B, H, W, 3]`` of one shape: ship uint8, preprocess on the
+        device, encode."""
+        b, h, w, _ = imgs_u8.shape
+        bb = _bucket(b)
+        if bb != b:
+            imgs_u8 = np.concatenate([imgs_u8, np.repeat(imgs_u8[-1:], bb - b, axis=0)], axis=0)
+        key = (h, w)
+        if key not in self._prep_cache:
+            self._prep_cache[key] = make_device_preprocess(
+                h, w, self.config.vision.image_size, np.asarray(self.config.image_mean),
+                np.asarray(self.config.image_std), self.device)
+        with torch.inference_mode():
+            u8 = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
+            out = self._encode_pixels(self._prep_cache[key](u8), normalize)
             out = out[:b].to(torch.float32).cpu().numpy()
         return out[0] if single else out
 

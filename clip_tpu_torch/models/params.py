@@ -116,8 +116,10 @@ def load_params_np(reader: GGUFReader, cfg: ClipConfig | None = None) -> dict:
 def convert_layers_to_w8(params: dict) -> dict:
     """Re-quantize each tower's stacked block-quantized layer weights
     (``qkv_w``, ``o_w``, ``up_w``, ``down_w``) to per-channel int8 on the host,
-    as the JAX package's ``engine.py:74 _convert_layers_to_w8`` does.
-    Embeddings, norms and the output projections keep their source format."""
+    as the JAX package's ``engine.py:74 _convert_layers_to_w8`` does, keeping
+    each packed source beside its int8 codes (``keep_source=True``, as at
+    ``engine.py:94-97``).  Embeddings, norms and the output projections keep
+    their source format."""
     out = dict(params)
     for tower in ("text", "vision"):
         if tower not in out:
@@ -125,7 +127,7 @@ def convert_layers_to_w8(params: dict) -> dict:
         layers = dict(out[tower]["layers"])
         for name in W8_LAYER_WEIGHTS:
             if isinstance(layers[name], QTensor):
-                layers[name] = to_w8tensor(layers[name])
+                layers[name] = to_w8tensor(layers[name], keep_source=True)
         out[tower] = {**out[tower], "layers": layers}
     return out
 
@@ -137,14 +139,19 @@ def _keeps_f32(name: str) -> bool:
     return name.endswith("_b") or "ln" in name or name == "class_embd"
 
 
+def _qtensor(leaf) -> QTensor:
+    return QTensor(q=leaf.q, d=leaf.d, m=leaf.m, qtype=GGMLType(int(leaf.qtype)), hb=leaf.hb)
+
+
 def _leaf_to_torch(leaf, device, dtype) -> Any:
     # duck-typed so that the JAX package's QTensor / W8Tensor leaves (with
     # numpy fields) convert too, without importing that package
     if hasattr(leaf, "c8"):
-        return W8Tensor(c8=leaf.c8, ws=leaf.ws, qtype=GGMLType(int(leaf.qtype))).to(device)
+        src = getattr(leaf, "qt", None)
+        return W8Tensor(c8=leaf.c8, ws=leaf.ws, qtype=GGMLType(int(leaf.qtype)),
+                        qt=None if src is None else _qtensor(src)).to(device)
     if hasattr(leaf, "q") and hasattr(leaf, "d"):
-        return QTensor(q=leaf.q, d=leaf.d, m=leaf.m, qtype=GGMLType(int(leaf.qtype)),
-                       hb=leaf.hb).to(device)
+        return _qtensor(leaf).to(device)
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":  # ml_dtypes; torch.from_numpy rejects it
         arr = arr.astype(np.float32)

@@ -22,9 +22,10 @@ from .transformer import run_blocks
 
 def encode_text(params: dict, cfg: TextConfig, token_ids: torch.Tensor, lengths: torch.Tensor,
                 *, use_gelu: bool, normalize: bool = True, compute_dtype=torch.float32,
-                kernels: bool = True) -> torch.Tensor:
+                kernels: bool = True, **flags) -> torch.Tensor:
     """``token_ids [B, S]`` int (padded), ``lengths [B]`` true lengths
-    (BOS and EOS included) -> embeddings ``[B, D]``."""
+    (BOS and EOS included) -> embeddings ``[B, D]``.  ``flags`` choose among
+    the W8A8 routes (``models.transformer.block``)."""
     b, s = token_ids.shape
     sp = -(-s // 16) * 16
     token_ids = F.pad(token_ids, (0, sp - s))
@@ -36,7 +37,7 @@ def encode_text(params: dict, cfg: TextConfig, token_ids: torch.Tensor, lengths:
     x = x + pos[None]
 
     x = run_blocks(x, params["layers"], n_head=cfg.n_head, eps=cfg.eps, use_gelu=use_gelu,
-                   causal=True, kernels=kernels)
+                   causal=True, kernels=kernels, **flags)
     x = layernorm(x, params["post_ln_w"], params["post_ln_b"], cfg.eps)
 
     pooled = x[torch.arange(b, device=x.device), lengths.to(torch.long) - 1]

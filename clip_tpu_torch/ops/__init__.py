@@ -1,12 +1,12 @@
 """Kernel wrappers, their plain PyTorch versions, and the reference math."""
 
-from .actquant import gemm_i8, lnq, mlp_lnq, requant
-from .attention import attention_heads, attn_block, mha_qkv
+from .actquant import gemm_gq, gemm_i8, lnq, mlp_gq, mlp_lnq, requant, w8a8_pre
+from .attention import attention_heads, attn_block, mha_qkv, mha_qkv_i8
 from .qmatmul import qmatmul_q4, qmatmul_q5, qmatmul_q8
 
 #: every wrapper that launches a CUDA kernel; each counts in ``.launches``
-WRAPPERS = (attn_block, mlp_lnq, qmatmul_q4, qmatmul_q5, qmatmul_q8, mha_qkv, lnq, gemm_i8,
-            requant, attention_heads)
+WRAPPERS = (attn_block, mlp_lnq, qmatmul_q4, qmatmul_q5, qmatmul_q8, mha_qkv, lnq, gemm_gq,
+            mlp_gq, mha_qkv_i8, w8a8_pre, gemm_i8, requant, attention_heads)
 
 
 def reset_launches() -> None:

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "ctt_requant": (_P, _P, _P, _I, _I, _P),
     "ctt_gemm_i8": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "ctt_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "ctt_attention_i8": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ctt_qmatmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

@@ -1,6 +1,20 @@
-"""The whole-MLP block (counterpart of the JAX package's
-``ops/actquant_pallas.py:362 mlp_lnq_pallas``) and the int8 building blocks
-it shares with the attention block.
+"""The int8 activation-quantized kernels of the JAX package's
+``ops/actquant_pallas.py``:
+
+* :func:`mlp_lnq` -- the whole MLP block (``mlp_lnq_pallas:362``);
+* :func:`lnq` -- LN + row int8 quant (``lnq_pallas:71``);
+* :func:`gemm_gq` -- int8 GEMM -> rescale + bias -> gelu or none -> row
+  requant (``gemm_gq_pallas:172``);
+* :func:`mlp_gq` -- the MLP from pre-quantized codes, no down bias
+  (``mlp_gq_pallas:296``);
+* :func:`w8a8_pre` -- the int8 GEMM over pre-quantized codes with the
+  ``bf16(acc*sx*ws)`` rescale (``w8a8_pre:658``, XLA in the JAX package);
+
+and the int8 building blocks they share with the attention block.  It also
+keeps copies of the JAX package's MLP route gates (:func:`fusable_width`,
+:func:`mlp_fusable`, :func:`mlp_stream_fusable`): TPU VMEM budgets, copied
+only so that the port takes the reference's route (which fixes the function
+computed).  No CUDA launch decision depends on them.
 
 Every wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel (``csrc/actquant.cu``) for a tensor on a card; there
@@ -20,14 +34,68 @@ import torch
 from . import _cuda
 from .nn import layernorm_f32, quant_rows
 
-__all__ = ["ACC", "BIAS", "GELU_QUICK", "GELU_TANH", "RESID", "gemm_i8",
-           "gemm_i8_plain", "lnq", "lnq_plain", "mlp_lnq", "mlp_lnq_plain",
-           "requant", "requant_plain"]
+__all__ = ["ACC", "BIAS", "BIAS_F32", "GELU_QUICK", "GELU_TANH", "PRE", "RESID",
+           "fusable_width", "gemm_gq", "gemm_gq_plain", "gemm_i8", "gemm_i8_plain", "lnq",
+           "lnq_plain", "mlp_fusable", "mlp_gq", "mlp_gq_plain", "mlp_lnq", "mlp_lnq_plain",
+           "mlp_stream_fusable", "requant", "requant_plain", "w8a8_pre", "w8a8_pre_plain"]
 
 # epilogue modes of the int8 GEMM (csrc/actquant.cu GemmMode)
-ACC, BIAS, GELU_QUICK, GELU_TANH, RESID = 0, 1, 2, 3, 4
-_ACT_MODE = {"gelu_quick": GELU_QUICK, "gelu_tanh": GELU_TANH}
+ACC, BIAS, GELU_QUICK, GELU_TANH, RESID, PRE, BIAS_F32 = 0, 1, 2, 3, 4, 5, 6
+_ACT_MODE = {"gelu_quick": GELU_QUICK, "gelu_tanh": GELU_TANH, "none": BIAS_F32}
 _SQRT_2_OVER_PI = 0.7978845608028654
+
+
+# -- route gates, copied from the JAX package's ops/actquant_pallas.py -------
+# TPU VMEM budgets: they decide which route the reference takes (and so
+# which function it computes) for a geometry; the port takes the same route.
+
+def fusable_width(h: int) -> bool:
+    """``actquant_pallas.py:48``: the row width tiles 128 lanes."""
+    return h % 128 == 0
+
+
+_MLP_MAX_WEIGHT_BYTES = 9 * 1024 * 1024 + 512 * 1024
+
+
+def _mlp_block_rows(rows: int, n: int, k: int, with_ln: bool) -> "int | None":
+    """``actquant_pallas.py:260``."""
+    if 2 * n * k > _MLP_MAX_WEIGHT_BYTES:
+        return None
+    rp = -(-rows // 8) * 8
+    return min(256, rp)
+
+
+def mlp_fusable(h: int, n4h: int) -> bool:
+    """``actquant_pallas.py:267``: both int8 MLP weights fit the TPU's
+    resident budget (False at ViT-H/14's 1280 x 5120)."""
+    return (fusable_width(h) and fusable_width(n4h)
+            and _mlp_block_rows(8, n4h, h, True) is not None)
+
+
+def _mlp_stream_plan(rows: int, k: int, n: int) -> "tuple[int, int] | None":
+    """``actquant_pallas.py:448``."""
+    if k % 128 != 0 or n % 128 != 0:
+        return None
+    budget = 13 * 1024 * 1024
+    for br in (256, 128, 64, 32, 16, 8):
+        for c in (4, 8, 16, 2, 32):
+            if n % c or (n // c) % 128:
+                continue
+            nc = n // c
+            chunks = 4 * nc * k
+            scratch = br * (5 * k + 4 * n + 12)
+            xo = 2 * br * k * 2 * 2
+            if chunks + scratch + xo <= budget:
+                rp = -(-rows // 8) * 8
+                return min(br, rp), c
+    return None
+
+
+def mlp_stream_fusable(h: int, n4h: int) -> bool:
+    """``actquant_pallas.py:473``: the weight-streamed MLP kernel (row 9,
+    not ported) can run this width."""
+    return (fusable_width(h) and fusable_width(n4h)
+            and _mlp_stream_plan(8, h, n4h) is not None)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -48,6 +116,10 @@ def gemm_i8_plain(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfl
     if mode == ACC:
         return acc.to(torch.int32)
     y = acc.to(torch.float32) * sx[:, None] * ws[None, :]
+    if mode == PRE:
+        return y.to(out_dtype)
+    if mode == BIAS_F32:
+        return y + bias
     if mode == BIAS:
         return (y + bias).to(out_dtype)
     if mode == GELU_QUICK:
@@ -61,6 +133,28 @@ def gemm_i8_plain(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfl
         t = y.to(out_dtype) + bias.to(out_dtype)
         return resid.to(out_dtype) + t
     raise ValueError(f"unknown GEMM mode {mode}")
+
+
+def w8a8_pre_plain(codes, sx, w8, ws, out_dtype=torch.bfloat16):
+    """``codes [M, K] int8 . w8 [N, K]^T`` -> ``acc * sx * ws`` in float32,
+    rounded to ``out_dtype``; no bias."""
+    return gemm_i8_plain(codes, w8, sx, ws, None, PRE, out_dtype=out_dtype)
+
+
+def gemm_gq_plain(codes, sx, w8, ws, bias, act: str = "gelu_quick"):
+    """int8 GEMM -> ``acc * sx * ws + bias`` in float32 -> ``act`` (gelu_quick,
+    gelu_tanh or none) -> row int8 requant: (codes ``[M, N]``, scales
+    ``[M]``)."""
+    return requant_plain(gemm_i8_plain(codes, w8, sx, ws, bias, _ACT_MODE[act]))
+
+
+def mlp_gq_plain(codes, sx, up8, upws, upb, dn8, dnws, *, act: str = "gelu_quick",
+                 out_dtype=torch.bfloat16):
+    """The MLP from pre-quantized codes ``[M, H]``: up GEMM -> + bias -> act
+    -> requant -> down GEMM -> ``acc * s2 * dnws`` rounded to ``out_dtype``;
+    no down bias, no residual."""
+    c2, s2 = gemm_gq_plain(codes, sx, up8, upws, upb, act)
+    return w8a8_pre_plain(c2, s2, dn8, dnws, out_dtype)
 
 
 def mlp_lnq_plain(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
@@ -112,16 +206,20 @@ def requant(y):
 
 
 _GEMM_OUT = {ACC: torch.int32, BIAS: torch.bfloat16, GELU_QUICK: torch.float32,
-             GELU_TANH: torch.float32, RESID: torch.bfloat16}
+             GELU_TANH: torch.float32, RESID: torch.bfloat16, PRE: torch.bfloat16,
+             BIAS_F32: torch.float32}
 
 
-def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None):
+def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16):
     """int8 GEMM with epilogue (``ctt_gemm_i8``): ``a [M, K]``, ``b [N, K]``,
-    K % 64 == 0, N % 8 == 0."""
+    K % 64 == 0, N % 8 == 0.  ``out_dtype`` is the rounding of the BIAS,
+    RESID and PRE epilogues: bfloat16 on a card."""
     if a.device.type == "cpu":
-        return gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid)
+        return gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid, out_dtype=out_dtype)
     if mode not in _GEMM_OUT:
         raise ValueError(f"unknown GEMM mode {mode}")
+    if _GEMM_OUT[mode] == torch.bfloat16 and out_dtype != torch.bfloat16:
+        raise TypeError(f"gemm_i8: mode {mode} writes bfloat16 on a card, not {out_dtype}")
     m, k = a.shape
     n = b.shape[0]
     dev = a.device
@@ -132,6 +230,7 @@ def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None):
     if mode != ACC:
         _cuda.require(sx, "sx", torch.float32, (m,), dev)
         _cuda.require(ws, "ws", torch.float32, (n,), dev)
+    if mode not in (ACC, PRE):
         _cuda.require(bias, "bias", torch.float32, (n,), dev)
     if mode == RESID:
         _cuda.require(resid, "resid", torch.bfloat16, (m, n), dev)
@@ -166,5 +265,55 @@ def mlp_lnq(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
     return out
 
 
-for _fn in (lnq, requant, gemm_i8, mlp_lnq):
+def w8a8_pre(codes, sx, w8, ws, out_dtype=torch.bfloat16):
+    """Counterpart of the JAX package's ``w8a8_pre``: ``codes [M, K]`` int8
+    with row scales ``sx [M]`` times ``w8 [N, K]`` -> ``bf16(acc * sx * ws)``
+    (``ctt_gemm_i8``, PRE epilogue, on a card)."""
+    if codes.device.type == "cpu":
+        return w8a8_pre_plain(codes, sx, w8, ws, out_dtype)
+    out = gemm_i8(codes, w8, sx, ws, None, PRE, out_dtype=out_dtype)
+    w8a8_pre.launches += 1
+    return out
+
+
+def gemm_gq(codes, sx, w8, ws, bias, act: str = "gelu_quick"):
+    """Counterpart of ``gemm_gq_pallas``: ``codes [M, K]`` int8 (row scales
+    ``sx [M]``) times ``w8 [N, K]`` -> ``acc * sx * ws + bias`` in float32 ->
+    ``act`` -> row int8 requant over the full row: (codes ``[M, N]``, scales
+    ``[M]``).
+
+    On a card: ``ctt_gemm_i8`` (GELU or f32 bias epilogue, f32 out) ->
+    ``ctt_requant``.  The requant's row amax spans all N columns, more than
+    one GEMM tile holds, so the f32 row goes through device memory."""
+    if act not in _ACT_MODE:
+        raise ValueError(f"unknown act {act!r}")
+    if codes.device.type == "cpu":
+        return gemm_gq_plain(codes, sx, w8, ws, bias, act)
+    out = requant(gemm_i8(codes, w8, sx, ws, bias, _ACT_MODE[act]))
+    gemm_gq.launches += 1
+    return out
+
+
+def mlp_gq(codes, sx, up8, upws, upb, dn8, dnws, *, act: str = "gelu_quick",
+           out_dtype=torch.bfloat16):
+    """Counterpart of ``mlp_gq_pallas``: the MLP from pre-quantized codes
+    ``[M, H]`` -> ``[M, H]`` in ``out_dtype``, without the down bias.
+
+    On a card: :func:`gemm_gq` (``ctt_gemm_i8`` GELU + ``ctt_requant``) ->
+    down ``ctt_gemm_i8`` with the PRE epilogue."""
+    if act not in _ACT_MODE:
+        raise ValueError(f"unknown act {act!r}")
+    if codes.device.type == "cpu":
+        return mlp_gq_plain(codes, sx, up8, upws, upb, dn8, dnws, act=act, out_dtype=out_dtype)
+    m, h = codes.shape
+    n = up8.shape[0]
+    _cuda.require(up8, "up8", torch.int8, (n, h), codes.device)
+    _cuda.require(dn8, "dn8", torch.int8, (h, n), codes.device)
+    c2, s2 = gemm_gq(codes, sx, up8, upws, upb, act)
+    out = w8a8_pre(c2, s2, dn8, dnws, out_dtype)
+    mlp_gq.launches += 1
+    return out
+
+
+for _fn in (lnq, requant, gemm_i8, mlp_lnq, w8a8_pre, gemm_gq, mlp_gq):
     _fn.launches = 0

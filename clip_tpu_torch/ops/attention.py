@@ -19,6 +19,16 @@ to the compute dtype, as ``mha_pallas_qkv`` writes it; the TPU kernel's
 ``quant_out=True`` form is :func:`attention_heads` followed by
 ``ops.actquant.requant``.  The core takes any S up to 640 at d_head 64 or 80
 (:func:`attention_smem`); the wrappers raise before a launch it cannot take.
+
+:func:`mha_qkv_i8` (counterpart of ``ops/attention_pallas.py:278
+mha_pallas_qkv_i8``) is attention over an int8 qkv projection with per-row
+scales: the q.k dot exact in integers, V dequantized to bf16 per row.
+
+The module also keeps copies of the JAX package's attention route gates
+(:func:`flat_eligible`, :func:`attn_block_fusable`,
+:func:`attn_block_stream_fusable`).  They are TPU VMEM budgets, copied only
+so that the port takes the reference's route for a geometry, which fixes
+the function computed; no CUDA launch decision depends on them.
 """
 
 from __future__ import annotations
@@ -30,10 +40,103 @@ from .actquant import (BIAS, RESID, gemm_i8, gemm_i8_plain, lnq, lnq_plain,
                        requant, requant_plain)
 
 __all__ = ["NEG_INF", "attention_heads", "attention_heads_plain", "attn_block",
-           "attn_block_plain", "mha_qkv", "mha_qkv_plain"]
+           "attn_block_fusable", "attn_block_plain", "attn_block_stream_fusable",
+           "flat_eligible", "mha_qkv", "mha_qkv_i8", "mha_qkv_i8_plain", "mha_qkv_plain"]
 
 NEG_INF = -1e9
 _SM_BOUND = 80.0
+
+
+# -- route gates, copied from the JAX package's ops/attention_pallas.py -------
+
+_FLAT_MAX_ROWS = 448
+_FLAT_MIN_ROWS = 128
+_FLAT_MAX_S1 = 640
+_FLAT_VMEM_BUDGET = 12 * 2**20
+
+
+def _flat_block_b(b: int, s: int, h3: int | None = None,
+                  quant_out: bool = False) -> "int | None":
+    """``attention_pallas.py:958``: images per grid step of the TPU's flat
+    attention kernel, or None where that kernel cannot take the shape."""
+    g = 2 if s % 2 == 0 else 1
+    g = 4 if s % 4 == 0 else g
+    g = 8 if s % 8 == 0 else g
+    base = 8 // g
+    bb = base * max(1, -(-_FLAT_MIN_ROWS // (base * s)))
+    if bb * s > _FLAT_MAX_ROWS:
+        if base == 1 and s <= _FLAT_MAX_S1 and h3 is not None:
+            h = h3 // 3
+            vmem = s * h3 * 2 + s * h * 2 + 2 * s * s * 4
+            if quant_out:
+                vmem += 2 * s * h * 4 + s * h
+            if vmem > _FLAT_VMEM_BUDGET:
+                return None
+            bb = 1
+        else:
+            return None
+    return min(bb, b) if (min(bb, b) * s) % 8 == 0 else None
+
+
+def flat_eligible(b: int, s: int, h3: int | None = None, quant_out: bool = False) -> bool:
+    """``attention_pallas.py:1000``."""
+    return _flat_block_b(b, s, h3, quant_out) is not None
+
+
+_ABLK_BUDGET = 19 * 1024 * 1024
+
+
+def _ablk_resid(rt: int, h: int, qkv_width: int, o_out: int) -> int:
+    """``attention_pallas.py:377``."""
+    h_loc = qkv_width // 3
+    weights = qkv_width * h + o_out * h_loc
+    return weights + rt * (7 * h + 6 * qkv_width + 5 * h_loc + 6 * o_out) + 8 * rt * rt
+
+
+def attn_block_fusable(h: int, qkv_width: int, o_out: int, b: int = 8, s: int = 8) -> bool:
+    """``attention_pallas.py:383``: the resident attention block (row 1)."""
+    h_loc = qkv_width // 3
+    if h % 128 != 0 or h_loc % 128 != 0:
+        return False
+    bb = _flat_block_b(b, s, qkv_width)
+    if bb is None:
+        return False
+    return _ablk_resid(bb * s, h, qkv_width, o_out) <= _ABLK_BUDGET
+
+
+def _ablk_stream_plan(rt: int, h: int, qkv_width: int, o_out: int,
+                      dh: int) -> "tuple[int, int] | None":
+    """``attention_pallas.py:597``."""
+    hl = qkv_width // 3
+    n_head = hl // dh
+    for cq in (3, 4, 6, 8, 2):
+        if qkv_width % cq or (qkv_width // cq) % 128:
+            continue
+        ncq = qkv_width // cq
+        for hg in (4, 2, 8, 16, 1):
+            if n_head % hg or (hg * dh) % 128:
+                continue
+            resident = (rt * h * 2 * 2 + rt * h + rt * qkv_width * 2 + rt * o_out * 4
+                        + 2 * rt * rt * 4 + 2 * ncq * h + 2 * o_out * hg * dh
+                        + 2 * rt * o_out * 2)
+            if resident <= 14 * 1024 * 1024:
+                return cq, hg
+    return None
+
+
+def attn_block_stream_fusable(h: int, qkv_width: int, o_out: int, b: int = 8, s: int = 8,
+                              n_head: int | None = None) -> bool:
+    """``attention_pallas.py:631``: the streamed attention block (row 8, not
+    ported)."""
+    h_loc = qkv_width // 3
+    if h % 128 != 0 or h_loc % 128 != 0:
+        return False
+    if n_head is None:
+        return False
+    bb = _flat_block_b(b, s, qkv_width)
+    if bb is None:
+        return False
+    return _ablk_stream_plan(bb * s, h, qkv_width, o_out, h_loc // n_head) is not None
 
 
 def _mask(s: int, causal: bool, valid_len: int, device) -> torch.Tensor:
@@ -133,6 +236,92 @@ def mha_qkv(qkv, *, n_head: int, scale: float, causal: bool = False,
     return out.reshape(b, s, h3 // 3)
 
 
+def attention_i8_plain(codes, sx, b: int, s: int, n_head: int, scale: float,
+                       causal: bool = False, valid_len: int | None = None):
+    """Per-head attention over an int8 qkv projection ``codes [B*S, 3*Hl]``
+    with per-row scales ``sx [B*S]`` -> float32 ``[B*S, Hl]``, in the order of
+    the TPU kernel (``attention_pallas.py:215 _qkv_kernel_flat_i8``): the
+    integer q.k dot exactly (float64 holds it), ``acc * (sx_q * scale) *
+    sx_k`` in float32, the clipped softmax with the -1e9 mask, p rounded to
+    bf16, V as ``bf16(code * sx)`` of its own row, p.V in float32."""
+    hl = codes.shape[1] // 3
+    dh = hl // n_head
+    q, k, v = codes.reshape(b, s, 3, n_head, dh).permute(2, 0, 3, 1, 4)
+    sxb = sx.reshape(b, s).to(torch.float32)
+    acc = q.to(torch.float64) @ k.to(torch.float64).transpose(-1, -2)
+    srow = sxb * torch.tensor(scale, dtype=torch.float32)
+    scores = acc.to(torch.float32) * srow[:, None, :, None] * sxb[:, None, None, :]
+    bias = _mask(s, causal, s if valid_len is None else valid_len, codes.device)
+    p = torch.exp(torch.clamp(scores, -_SM_BOUND, _SM_BOUND) + bias)
+    p = p / p.sum(dim=-1, keepdim=True)
+    vh = (v.to(torch.float32) * sxb[:, None, :, None]).to(torch.bfloat16)
+    out = p.to(torch.bfloat16).to(torch.float32) @ vh.to(torch.float32)
+    return out.permute(0, 2, 1, 3).reshape(b * s, hl)
+
+
+def mha_qkv_i8_plain(codes, scales, *, n_head: int, scale: float, causal: bool = False,
+                     valid_len: int | None = None, quant_out: bool = False,
+                     out_dtype=torch.bfloat16):
+    """Multi-head attention over int8 qkv codes ``[B, S, 3H]`` with row scales
+    ``[B, S]`` -> ``[B, S, H]`` in ``out_dtype``, or with ``quant_out`` the
+    output's row int8 requant over all heads: (codes ``[B, S, H]``, scales
+    ``[B, S]``)."""
+    b, s, h3 = codes.shape
+    out = attention_i8_plain(codes.reshape(b * s, h3), scales.reshape(b * s), b, s, n_head,
+                             scale, causal, valid_len)
+    if quant_out:
+        c, sc = requant_plain(out)
+        return c.reshape(b, s, h3 // 3), sc.reshape(b, s)
+    return out.to(out_dtype).reshape(b, s, h3 // 3)
+
+
+def attention_i8_smem(s: int, dh: int) -> int:
+    """Bytes of shared memory ``ctt_attention_i8`` takes: K codes as rows of
+    ``dh / 4 + 1`` 32-bit words, V dequantized to bf16 rows of ``dh + 2``, the
+    K-side row scales, and one f32 p row and one query row of codes per warp
+    (``csrc/attention.cu``)."""
+    return s * (dh // 4 + 1) * 4 + s * (dh + 2) * 2 + s * 4 + _ATTN_WARPS * (s * 4 + dh)
+
+
+def mha_qkv_i8(codes, scales, *, n_head: int, scale: float, causal: bool = False,
+               valid_len: int | None = None, quant_out: bool = False,
+               out_dtype=torch.bfloat16):
+    """Counterpart of ``mha_pallas_qkv_i8``: :func:`mha_qkv_i8_plain` on the
+    card (``ctt_attention_i8``, bf16 out; with ``quant_out`` f32 out, then
+    ``ctt_requant`` over the full row, as the TPU kernel's ``_quant_heads``
+    takes the max over heads)."""
+    if codes.device.type == "cpu":
+        return mha_qkv_i8_plain(codes, scales, n_head=n_head, scale=scale, causal=causal,
+                                valid_len=valid_len, quant_out=quant_out, out_dtype=out_dtype)
+    b, s, h3 = codes.shape
+    hl = h3 // 3
+    dh = hl // n_head
+    _cuda.require(codes, "codes", torch.int8, (b, s, h3), codes.device)
+    _cuda.require(scales, "scales", torch.float32, (b, s), codes.device)
+    if h3 % 3 or hl % n_head or dh % 4:
+        raise ValueError(f"mha_qkv_i8: width {h3} does not split into 3 x {n_head} heads "
+                         "of a multiple of 4")
+    if not quant_out and out_dtype != torch.bfloat16:
+        raise TypeError(f"mha_qkv_i8: the kernel writes bfloat16, not {out_dtype}")
+    vl = s if valid_len is None else valid_len
+    if not 1 <= vl <= s:
+        raise ValueError(f"mha_qkv_i8: valid_len {vl} outside [1, {s}]")
+    if attention_i8_smem(s, dh) > SMEM_LIMIT:
+        raise ValueError(f"mha_qkv_i8: S = {s}, d_head = {dh} needs "
+                         f"{attention_i8_smem(s, dh)} B of shared memory, more than the "
+                         f"{SMEM_LIMIT} B a block may have")
+    odt = torch.float32 if quant_out else torch.bfloat16
+    out = torch.empty(b * s, hl, dtype=odt, device=codes.device)
+    _cuda.check(_cuda.lib().ctt_attention_i8(
+        codes.data_ptr(), scales.data_ptr(), out.data_ptr(), b, s, n_head, dh, float(scale),
+        int(causal), vl, int(odt == torch.bfloat16), _cuda.stream(codes)), "mha_qkv_i8")
+    mha_qkv_i8.launches += 1
+    if quant_out:
+        c, sc = requant(out)
+        return c.reshape(b, s, hl), sc.reshape(b, s)
+    return out.reshape(b, s, hl)
+
+
 def attn_block_plain(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob, *, n_head: int,
                      scale: float, eps: float, causal: bool = False,
                      valid_len: int | None = None):
@@ -170,5 +359,5 @@ def attn_block(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob, *, n_head: int,
     return out.reshape(b, s, h)
 
 
-for _fn in (attention_heads, attn_block, mha_qkv):
+for _fn in (attention_heads, attn_block, mha_qkv, mha_qkv_i8):
     _fn.launches = 0

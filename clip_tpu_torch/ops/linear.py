@@ -13,7 +13,12 @@ of the JAX package's ``ops/linear.py:83-151`` on an accelerator
 * a dense weight is ``torch.matmul`` in the compute dtype, outside any
   kernel, as the JAX package leaves it to XLA;
 * on the CPU every block format dequantizes, as the JAX package does off
-  the TPU.
+  the TPU;
+* a :class:`~.qtensor.W8Tensor` that keeps its block-quantized source goes
+  on a card, at 2048 rows or fewer, to the dequant-GEMM kernel of the
+  source's format (``ops/linear.py:123-138``); otherwise it takes
+  :func:`w8a8_matmul`, whose int8 product runs on a card in the port's
+  ``gemm_i8`` kernel (``ops.actquant.w8a8_pre``).
 
 ``kernels=False`` takes the plain versions on any device: the reference
 route that a card's kernels are held against.
@@ -23,25 +28,27 @@ from __future__ import annotations
 
 import torch
 
+from .actquant import w8a8_pre, w8a8_pre_plain
 from .nn import quant_rows
 from .qmatmul import qmatmul_plain, qmatmul_q4, qmatmul_q5, qmatmul_q8
 from .qtensor import QTensor, W8Tensor, dequant
 
-__all__ = ["fused_route", "qmatmul", "w8a8_matmul"]
+__all__ = ["fused_route", "qmatmul", "source_route", "w8a8_matmul"]
 
 _KERNEL_MAX_ROWS = 2048
 
 
-def w8a8_matmul(x: torch.Tensor, w: W8Tensor, compute_dtype=None) -> torch.Tensor:
-    """``x [..., K] @ (w.c8 * w.ws).T`` with per-row int8 activations:
-    exact int32 accumulation (float64 holds it exactly), then ``acc * sx *
-    ws`` in float32, in that order."""
+def w8a8_matmul(x: torch.Tensor, w: W8Tensor, compute_dtype=None,
+                kernels: bool = True) -> torch.Tensor:
+    """``x [..., K] @ (w.c8 * w.ws).T`` with per-row int8 activations (the
+    row quant in plain PyTorch, as the JAX package leaves it to XLA): exact
+    int32 accumulation, then ``acc * sx * ws`` in float32, in that order,
+    rounded to ``compute_dtype``."""
     compute_dtype = compute_dtype or x.dtype
     lead = x.shape[:-1]
     x8, sx = quant_rows(x.reshape(-1, x.shape[-1]))
-    acc = x8.to(torch.float64) @ w.c8.to(torch.float64).T
-    y = acc.to(torch.float32) * sx[:, None] * w.ws[None, :]
-    return y.to(compute_dtype).reshape(*lead, w.c8.shape[0])
+    fn = w8a8_pre if kernels else w8a8_pre_plain
+    return fn(x8, sx, w.c8, w.ws, compute_dtype).reshape(*lead, w.c8.shape[0])
 
 
 def fused_route(w, rows: int) -> bool:
@@ -54,6 +61,14 @@ def fused_route(w, rows: int) -> bool:
     return w.is_packed5 or rows <= _KERNEL_MAX_ROWS
 
 
+def source_route(w: W8Tensor, rows: int) -> bool:
+    """True where the JAX package on a TPU sends ``x [rows, K] @ w.T`` for a
+    W8Tensor to ``qmatmul_pallas`` on its kept source (``ops/linear.py:
+    133-137``): a kept source and 2048 rows or fewer.  The port takes that
+    route on a card."""
+    return w.qt is not None and rows <= _KERNEL_MAX_ROWS
+
+
 def _kernel_for(w: QTensor):
     if w.is_packed4:
         return qmatmul_q4
@@ -64,10 +79,12 @@ def qmatmul(x: torch.Tensor, w, *, compute_dtype=None, kernels: bool = True) -> 
     """``x [..., K] @ w[N, K].T -> [..., N]`` in ``compute_dtype`` (default
     ``x.dtype``); accumulation is float32."""
     cdt = compute_dtype or x.dtype
-    if isinstance(w, W8Tensor):
-        return w8a8_matmul(x, w, cdt)
     lead = x.shape[:-1]
     rows = x.reshape(-1, x.shape[-1]).shape[0]
+    if isinstance(w, W8Tensor):
+        if not (x.is_cuda and source_route(w, rows)):
+            return w8a8_matmul(x, w, cdt, kernels)
+        w = w.qt
     if x.is_cuda and fused_route(w, rows):
         x2 = x.reshape(rows, -1).to(cdt)
         y = _kernel_for(w)(x2, w) if kernels else qmatmul_plain(x2, w)

@@ -82,6 +82,11 @@ class QTensor:
                        m=_to_torch(self.m, device), qtype=self.qtype,
                        hb=_to_torch(self.hb, device))
 
+    def __getitem__(self, i) -> "QTensor":
+        """Slice the leading (layer) axis."""
+        return QTensor(q=self.q[i], d=self.d[i], m=None if self.m is None else self.m[i],
+                       qtype=self.qtype, hb=None if self.hb is None else self.hb[i])
+
 
 @dataclass
 class W8Tensor:
@@ -89,23 +94,30 @@ class W8Tensor:
     ``[..., N]``, ``W ≈ c8 * ws[..., None]``.  Derived from a block-quantized
     :class:`QTensor` at load time (:func:`to_w8tensor`) and consumed by the
     int8 GEMMs of the attention and MLP blocks, which quantize activations
-    per row."""
+    per row.
+
+    ``qt`` optionally keeps the block-quantized source: a GEMM of 2048 rows or
+    fewer on a card then reads the packed source through the dequant-GEMM
+    kernel of its format instead of the int8 codes, as the JAX package routes
+    it on a TPU (``ops/linear.py:123-138``)."""
 
     c8: Any
     ws: Any
     qtype: GGMLType        # source format, for reporting only
+    qt: Any = None         # the block-quantized source QTensor, or None
 
     @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self.c8.shape)
 
     def to(self, device) -> "W8Tensor":
-        return W8Tensor(c8=_to_torch(self.c8, device),
-                        ws=_to_torch(self.ws, device), qtype=self.qtype)
+        return W8Tensor(c8=_to_torch(self.c8, device), ws=_to_torch(self.ws, device),
+                        qtype=self.qtype, qt=None if self.qt is None else self.qt.to(device))
 
     def __getitem__(self, i) -> "W8Tensor":
         """Slice the leading (layer) axis."""
-        return W8Tensor(c8=self.c8[i], ws=self.ws[i], qtype=self.qtype)
+        return W8Tensor(c8=self.c8[i], ws=self.ws[i], qtype=self.qtype,
+                        qt=None if self.qt is None else self.qt[i])
 
 
 def dequant_np(qt: QTensor) -> np.ndarray:
@@ -132,20 +144,24 @@ def dequant_np(qt: QTensor) -> np.ndarray:
     return w.reshape(*codes.shape[:-1], k).astype(np.float32)
 
 
-def to_w8tensor(qt) -> W8Tensor:
+def to_w8tensor(qt, keep_source: bool = False) -> W8Tensor:
     """Re-quantize a weight to per-channel int8 on the host (numpy).
 
     Accepts a block-quantized :class:`QTensor` of numpy arrays or a dense
-    ``[..., N, K]`` array.  The per-channel scale is ``amax_K |W| / 127``."""
+    ``[..., N, K]`` array.  The per-channel scale is ``amax_K |W| / 127``.
+    ``keep_source=True`` (QTensor inputs only) keeps the packed source in
+    ``qt`` for the small-row routing of ``ops.linear.qmatmul``."""
+    src = None
     if isinstance(qt, QTensor):
         w, qtype = dequant_np(qt), qt.qtype
+        src = qt if keep_source else None
     else:
         w = np.asarray(qt, dtype=np.float32)
         qtype = GGMLType.F16
     ws = np.abs(w).max(axis=-1) / 127.0
     ws = np.maximum(ws, 1e-12)
     c8 = np.clip(np.rint(w / ws[..., None]), -127, 127).astype(np.int8)
-    return W8Tensor(c8=c8, ws=ws.astype(np.float32), qtype=qtype)
+    return W8Tensor(c8=c8, ws=ws.astype(np.float32), qtype=qtype, qt=src)
 
 
 def from_ggml_blocks(

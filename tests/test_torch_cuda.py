@@ -62,7 +62,7 @@ def test_lnq_matches_plain(card):
     assert int((codes.int() - pc.int()).abs().max()) <= 1
 
 
-@pytest.mark.parametrize("mode", [aq.ACC, aq.BIAS, aq.RESID])
+@pytest.mark.parametrize("mode", [aq.ACC, aq.BIAS, aq.RESID, aq.PRE, aq.BIAS_F32])
 def test_gemm_i8_exact(card, mode):
     rng = np.random.default_rng(1)
     m, k, n = 133, 192, 136  # M fills no 128-row tile, N no 128-column tile
@@ -246,6 +246,173 @@ def test_engine_dense_kernels_match_plain(card, tmp_path, monkeypatch):
     a_img, a_txt = eng.encode_image(imgs), eng.encode_text(["a photo of a cat", "dog"])
     n = ops.launches()
     assert n["mha_qkv"] == 4 and n["attn_block"] == 0 and n["mlp_lnq"] == 0
+    b_img, b_txt = ref.encode_image(imgs), ref.encode_text(["a photo of a cat", "dog"])
+    assert (a_img * b_img).sum(1).min() > 0.999
+    assert (a_txt * b_txt).sum(1).min() > 0.999
+
+
+def _codes(rng, m, k, dev):
+    codes = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(dev)
+    return codes, _vec(rng, m, dev, 0.02, 0.005).abs()
+
+
+def _close_codes(codes, sx, pc, psx, rtol):
+    """Row-quant outputs against the plain version's: scales within
+    ``rtol``, codes within 1, and almost all equal."""
+    torch.testing.assert_close(sx, psx, rtol=rtol, atol=0)
+    diff = (codes.int() - pc.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("act", ["gelu_quick", "gelu_tanh", "none"])
+def test_gemm_gq_matches_plain(card, act):
+    rng = np.random.default_rng(14)
+    codes, sx = _codes(rng, 133, 128, card)
+    w8, ws = _w8(rng, 264, 128, card)
+    bias = _vec(rng, 264, card)
+    oc, osx = aq.gemm_gq(codes, sx, w8, ws, bias, act)
+    pc, psx = aq.gemm_gq_plain(codes, sx, w8, ws, bias, act)
+    _close_codes(oc, osx, pc, psx, 1e-5)
+
+
+def test_w8a8_pre_matches_plain(card):
+    rng = np.random.default_rng(15)
+    codes, sx = _codes(rng, 70, 192, card)
+    w8, ws = _w8(rng, 136, 192, card)
+    out = aq.w8a8_pre(codes, sx, w8, ws)
+    assert out.dtype == torch.bfloat16 and out.shape == (70, 136)
+    assert torch.equal(out, aq.w8a8_pre_plain(codes, sx, w8, ws))
+
+
+def test_mlp_gq_matches_plain(card):
+    rng = np.random.default_rng(16)
+    codes, sx = _codes(rng, 77, 128, card)
+    up8, upws = _w8(rng, 512, 128, card)
+    dn8, dnws = _w8(rng, 128, 512, card)
+    args = (codes, sx, up8, upws, _vec(rng, 512, card), dn8, dnws)
+    out = aq.mlp_gq(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == (77, 128)
+    assert _cos(out, aq.mlp_gq_plain(*args, out_dtype=torch.float32)) > 0.999
+
+
+@pytest.mark.parametrize("quant_out", [False, True])
+@pytest.mark.parametrize("b,s,nh,dh,vl,causal", [(3, 13, 4, 64, None, False),
+                                                  (3, 13, 4, 64, 9, False),
+                                                  (2, 80, 2, 64, None, True),
+                                                  (2, 50, 2, 80, None, False),
+                                                  (1, 584, 2, 64, 577, False),
+                                                  (1, 640, 1, 80, None, False)])
+def test_mha_qkv_i8_matches_plain(card, b, s, nh, dh, vl, causal, quant_out):
+    rng = np.random.default_rng(17)
+    codes = torch.from_numpy(rng.integers(-127, 128, (b, s, 3 * nh * dh), dtype=np.int8))
+    codes = codes.to(card)
+    scales = _vec(rng, b * s, card, 0.02, 0.005).abs().reshape(b, s)
+    kw = dict(n_head=nh, scale=dh ** -0.5, causal=causal, valid_len=vl, quant_out=quant_out)
+    out = at.mha_qkv_i8(codes, scales, **kw)
+    torch.cuda.synchronize()
+    ref = at.mha_qkv_i8_plain(codes, scales, **kw)
+    if quant_out:
+        _close_codes(out[0], out[1], ref[0], ref[1], 1e-4)
+    else:
+        assert out.dtype == torch.bfloat16 and out.shape == (b, s, nh * dh)
+        torch.testing.assert_close(out, ref, rtol=1.6e-2, atol=1e-3)
+
+
+def test_w8_projection_routes_by_rows(card):
+    """A W8Tensor that keeps its q4_0 source takes ``qmatmul_q4`` on the
+    source at 2048 rows or fewer and the int8 GEMM (``w8a8_pre``) above."""
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.ops.linear import qmatmul, w8a8_matmul
+
+    rng = np.random.default_rng(18)
+    src = from_ggml_blocks(quantize(rng.normal(0, 0.05, (64, 128)).astype(np.float32),
+                                    GGMLType.Q4_0), (64, 128), GGMLType.Q4_0)
+    w = to_w8tensor(src, keep_source=True).to(card)
+    ops.reset_launches()
+    for rows in (2048, 2049):
+        x = _x(rng, (rows, 128), card)
+        y = qmatmul(x, w)
+        want = qmatmul_plain(x, w.qt) if rows <= 2048 else w8a8_matmul(x, w, kernels=False)
+        torch.testing.assert_close(y.float(), want.float(), rtol=2e-2, atol=2e-2)
+    n = ops.launches()
+    assert n["qmatmul_q4"] == 1 and n["w8a8_pre"] == 1
+
+
+def _w8_layer(rng, h, f, dev):
+    def w(n, k):
+        src = from_ggml_blocks(quantize(rng.normal(0, 0.05, (n, k)).astype(np.float32),
+                                        GGMLType.Q4_0), (n, k), GGMLType.Q4_0)
+        return to_w8tensor(src, keep_source=True).to(dev)
+
+    return {"ln1_w": _vec(rng, h, dev, 1.0, 0.1), "ln1_b": _vec(rng, h, dev),
+            "qkv_w": w(3 * h, h), "qkv_b": _vec(rng, 3 * h, dev), "o_w": w(h, h),
+            "o_b": _vec(rng, h, dev), "ln2_w": _vec(rng, h, dev, 1.0, 0.1),
+            "ln2_b": _vec(rng, h, dev), "up_w": w(f, h), "up_b": _vec(rng, f, dev),
+            "down_w": w(h, f), "down_b": _vec(rng, h, dev)}
+
+
+# flag set -> (B, S, flags, wrappers that must launch)
+_STAGED = {
+    "staged_quant_o": (4, 8, dict(attn_block=False), ("lnq", "w8a8_pre", "attention_heads")),
+    "staged_bf16": (1, 6, dict(attn_block=False), ("lnq", "w8a8_pre", "mha_qkv", "qmatmul_q4")),
+    "mlp_staged": (4, 8, dict(mlp_full=False), ("attn_block", "gemm_gq")),
+    "up_gq": (4, 8, dict(lnq_fuse=False, up_gq=True), ("mha_qkv", "mlp_gq", "qmatmul_q4")),
+    "up_gq_split": (4, 8, dict(lnq_fuse=False, up_gq=True, mlp_full=False),
+                    ("gemm_gq", "w8a8_pre")),
+    "attn_i8": (4, 8, dict(attn_block=False, attn_i8=True), ("gemm_gq", "mha_qkv_i8")),
+}
+
+
+@pytest.mark.parametrize("flags", list(_STAGED))
+def test_staged_block_matches_plain(card, flags):
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.models import transformer
+
+    rng = np.random.default_rng(19)
+    b, s, fl, wrappers = _STAGED[flags]
+    lp = _w8_layer(rng, 128, 512, card)
+    x = _x(rng, (b, s, 128), card)
+    kw = dict(n_head=4, eps=1e-5, use_gelu=False, **fl)
+    ops.reset_launches()
+    out = transformer.block(x, lp, **kw)
+    torch.cuda.synchronize()
+    n = ops.launches()
+    assert all(n[w] > 0 for w in wrappers), n
+    ref = transformer.block(x.float(), lp, kernels=False, **kw)
+    assert out.dtype == torch.bfloat16 and _cos(out, ref) > 0.999
+
+
+def test_device_preprocess_matches_host(card):
+    from clip_tpu_torch.ops.device_preprocess import device_preprocess
+    from clip_tpu_torch.preprocess import preprocess_batch
+
+    mean = np.array([0.48145466, 0.4578275, 0.40821073])
+    std = np.array([0.26862954, 0.26130258, 0.27577711])
+    imgs = np.random.default_rng(20).integers(0, 256, (3, 97, 131, 3), dtype=np.uint8)
+    out = device_preprocess(imgs, 64, mean, std, device=card)
+    assert out.is_cuda and out.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu().numpy(), preprocess_batch(list(imgs), 64, mean, std),
+                               atol=5e-4)
+
+
+def test_engine_up_gq_matches_plain(card, tmp_path, monkeypatch):
+    """``lnq_fuse=False`` on a card runs the no-lnq attention and the
+    ``up_gq`` MLP (``mlp_gq``); agreement with the plain route in f32."""
+    from clip_tpu_torch import ops, synth
+    from clip_tpu_torch.engine import ClipEngine
+
+    monkeypatch.setitem(synth.VARIANTS, "test-128",
+                        synth.Variant(128, 4, 2, 256, 128, 4, 2, 256, 64, 32, 64))
+    path = synth.make_synthetic_gguf(str(tmp_path / "t128.gguf"), "test-128", ftype="q4_0")
+    eng = ClipEngine(path, lnq_fuse=False, verbosity=0)
+    ref = ClipEngine(path, lnq_fuse=False, compute_dtype="float32", kernels=False, verbosity=0)
+    assert eng._upgq_active
+    rng = np.random.default_rng(21)
+    imgs = [(rng.random((70, 90, 3)) * 255).astype(np.uint8) for _ in range(3)]
+    ops.reset_launches()
+    a_img, a_txt = eng.encode_image(imgs), eng.encode_text(["a photo of a cat", "dog"])
+    n = ops.launches()
+    assert n["mlp_gq"] == 4 and n["attn_block"] == 0 and n["mlp_lnq"] == 0, n
     b_img, b_txt = ref.encode_image(imgs), ref.encode_text(["a photo of a cat", "dog"])
     assert (a_img * b_img).sum(1).min() > 0.999
     assert (a_txt * b_txt).sum(1).min() > 0.999

@@ -17,6 +17,7 @@ from clip_tpu.engine import ClipEngine as JaxEngine
 from clip_tpu.preprocess import preprocess_batch as jax_preprocess_batch
 
 from clip_tpu_torch.engine import ClipEngine, _bucket
+from clip_tpu_torch.gguf.constants import GGMLType
 from clip_tpu_torch.models import transformer
 from clip_tpu_torch.models.params import params_from_numpy
 from clip_tpu_torch.ops.qtensor import QTensor, W8Tensor
@@ -161,13 +162,30 @@ def test_cuda_is_the_default_device(engines):
             ClipEngine(path, verbosity=0)
 
 
-def test_other_routes_raise(engines):
-    _, _, port = engines
-    lp = transformer.layer(port.params["text"]["layers"], 0)
-    x = torch.zeros(1, 4, port.config.text.hidden_size)
-    for flags in (dict(lnq_fuse=False), dict(attn_block=False), dict(mlp_full=False)):
-        with pytest.raises(NotImplementedError):
-            transformer.block(x, lp, n_head=4, eps=1e-5, use_gelu=False, **flags)
+def _zero_w8_layer(h: int, f: int) -> dict:
+    """A W8A8 layer of zero weights at width ``h`` and MLP width ``f``."""
+    w8 = lambda n, k: W8Tensor(c8=torch.zeros(n, k, dtype=torch.int8),  # noqa: E731
+                               ws=torch.ones(n), qtype=GGMLType.Q4_0)
+    ones, zeros = torch.ones, torch.zeros
+    return {"ln1_w": ones(h), "ln1_b": zeros(h), "qkv_w": w8(3 * h, h), "qkv_b": zeros(3 * h),
+            "o_w": w8(h, h), "o_b": zeros(h), "ln2_w": ones(h), "ln2_b": zeros(h),
+            "up_w": w8(f, h), "up_b": zeros(f), "down_w": w8(h, f), "down_b": zeros(h)}
+
+
+@pytest.mark.parametrize("row", ["attn_block_stream", "mlp_lnq_stream"])
+def test_other_routes_raise(row):
+    """The two W8A8 routes whose TPU kernels stream their weights (rows 8
+    and 9 of the kernel table) are not ported: where the JAX package would
+    take them, the port raises.  Row 8 is reached at width 768 and S = 584
+    (no catalog model runs it); row 9 by ``mlp_stream=True`` at ViT-H/14's
+    MLP widths."""
+    if row == "attn_block_stream":
+        h, f, s, flags = 768, 3072, 584, {}
+    else:
+        h, f, s, flags = 1280, 5120, 8, dict(mlp_stream=True)
+    with pytest.raises(NotImplementedError, match=row):
+        transformer.block(torch.zeros(1, s, h), _zero_w8_layer(h, f), n_head=h // 64,
+                          eps=1e-5, use_gelu=False, **flags)
 
 
 def test_dense_layer_weights_take_the_dense_route(engines):
