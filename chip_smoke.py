@@ -25,6 +25,18 @@ Phases, each printing one flushed line with its wall seconds:
    ViT-L/14-336's qkv GEMM; ``mlp_gq`` at ViT-B/32; ``mha_qkv_i8`` at
    64 x 50, 8 x 80 causal and 2 x 584 valid 577, both output forms), and
    device preprocessing against the host path (atol 5e-4 in pixel space);
+4b. stream_kernels: the last five kernels against their plain versions:
+   ``attn_block_stream`` at ViT-B/16-384 [1, 584, 768] (valid 577, head
+   groups of 4) and at ViT-H/14 width [2, 408, 1280] (groups of 8 heads at
+   d_head 80), and with one group bit-equal to ``attn_block``;
+   ``mlp_lnq_stream`` at ViT-H/14 [64 x 264, 1280] with ``exact=True`` and
+   ``exact=False`` (8 chunks), and bit-equal to ``mlp_lnq`` with
+   ``exact=True`` or one chunk; the grouped requant and the grouped GEMM
+   epilogue alone (the GEMM bit-equal to its plain version); ``actq`` for
+   each activation at [16896, 5120]; ``mha`` at ViT-B/32 vision [64, 50,
+   768] and causal text [8, 77, 512] in bf16 and f32; ``layer_block`` at
+   [64, 50, 768] and causal [8, 80, 512], bit-equal to ``attn_block`` then
+   ``mlp_lnq``;
 5. paths: ``ClipEngine`` on CUDA, uint8 images (so device preprocessing),
    each drive with every launch counter set to 0 just before it and read
    just after: four ViT-B/32 checkpoints (q4_0 and f16 two towers, 64
@@ -33,11 +45,17 @@ Phases, each printing one flushed line with its wall seconds:
    no-lnq attention and the ``up_gq`` MLP); ViT-H/14 cut to 8 layers (64
    images; staged MLP); ViT-L/14-336 cut to 4 layers (1, 2 and 4 images;
    staged attention, its o projection on the q4_0 source at 584 and 1168
-   rows, on the int8 GEMM at 2336).  Every counter must rise by the count
+   rows, on the int8 GEMM at 2336); a q4_0 ViT-B/16 vision tower at 384 px,
+   all 12 layers (1 and 8 images; S 577 padded to 584: every layer's
+   attention on the streamed block, ``attn_block_stream``).  Every counter
+   must rise by the count
    the route implies, the embeddings must be finite and unit-norm and agree
    (per-row cos > 0.999) with the same engine forced onto its plain
    versions in float32.  The f16 path encodes its images once more with
    bf16 reduced-precision reductions off and reports the largest change;
+5b. h14_mlp_stream: the cut ViT-H/14 tower through ``encode_image(...,
+   mlp_stream=True)`` at B = 64, every MLP on ``mlp_lnq_stream``, launches
+   counted, embeddings bit-equal to the default staged route's;
 6. long_sequence: two ViT-L/14-336 layers at the unpadded S = 577 through
    ``run_blocks`` (the staged route), kernels against the plain versions;
 7. attn_i8_stacks: two layers on the ``attn_i8`` route at ViT-B/32 vision
@@ -52,7 +70,11 @@ Phases, each printing one flushed line with its wall seconds:
    dequantized q, k, v beside ``mha_qkv_i8``: the nearest call, not the
    same function), the q4_0 and f16 ViT-B/32 vision towers at B = 256, the
    ViT-H/14 cut tower at B = 64 and the ViT-L/14-336 cut tower at B = 1 and
-   4, each whole and per layer.
+   4, each whole and per layer; then (stream_timing) the last five kernels
+   and their plain versions at the shapes checked, SDPA on the same q, k, v
+   beside ``mha``, the ViT-B/16-384 tower at B = 1 and 8, whole and per
+   layer, with its profile at B = 8, and the ViT-H/14 tower with and
+   without ``mlp_stream``.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -120,10 +142,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn`` in ms: ``fn`` is captured once in a CUDA
-    graph and the graph replayed ``iters`` times between two CUDA events, so
-    the Python and launch overhead of the wrappers is left out."""
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device time of ``fn`` in ms: ``fn`` is captured once in a CUDA graph
+    and the graph replayed ``iters`` times in ``reps`` stretches, each
+    between two CUDA events, so the Python and launch overhead of the
+    wrappers is left out; the median of the stretches' means, so one slow
+    stretch of the card does not set it."""
     import torch
 
     side = torch.cuda.Stream()
@@ -137,14 +161,18 @@ def graph_ms(fn, iters: int = 50) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    n = max(1, iters // reps)
+    means = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / n)
+    return statistics.median(means)
 
 
 def profile_kernels(fn) -> dict:
@@ -354,24 +382,29 @@ def check_kernels(device) -> dict:
 # path name -> (GGUF ftype, towers): seeded random ViT-B/32 checkpoints
 PATHS = {"q4_0": ("q4_0", "both"), "f16": ("f16", "both"), "q5_1": ("q5_1", "vision"),
          "q8_0": ("q8_0", "vision")}
-# checkpoint name -> (catalog variant, vision layers kept): q4_0 vision
-# towers at full width with their depth cut, registered as cut variants in
-# the worker that writes them
-CUT_PATHS = {"h14": ("ViT-H/14", 8), "l14_336": ("ViT-L/14-336", 4)}
+# checkpoint name -> (catalog variant, vision layers kept, image size): q4_0
+# vision towers at full width, their depth cut (H/14, L/14-336) or their
+# image size changed (ViT-B/16 at 384 px, as timm's
+# vit_base_patch16_clip_384 towers), registered as variants in the worker
+# that writes them
+CUT_PATHS = {"h14": ("ViT-H/14", 8, 224), "l14_336": ("ViT-L/14-336", 4, 336),
+             "b16_384": ("ViT-B/16", 12, 384)}
 # wrappers whose launches each path run reads
 PATH_WRAPPERS = ("attn_block", "mlp_lnq", "mha_qkv", "qmatmul_q4", "qmatmul_q5", "qmatmul_q8",
-                 "lnq", "gemm_gq", "mlp_gq", "mha_qkv_i8", "w8a8_pre")
+                 "lnq", "gemm_gq", "mlp_gq", "mha_qkv_i8", "w8a8_pre", "attn_block_stream",
+                 "mlp_lnq_stream", "actq", "layer_block", "mha")
 
 
-def write_cut(path: str, variant: str, v_layers: int) -> str:
-    """Write a q4_0 vision checkpoint of ``variant`` with its depth cut to
-    ``v_layers`` (runs in a worker process)."""
+def write_cut(path: str, variant: str, v_layers: int, image_size: int) -> str:
+    """Write a q4_0 vision checkpoint of ``variant`` with ``v_layers`` layers
+    at ``image_size`` px (runs in a worker process)."""
     import dataclasses
 
     from clip_tpu_torch import synth
 
-    cut = f"{variant}-cut{v_layers}"
-    synth.VARIANTS[cut] = dataclasses.replace(synth.VARIANTS[variant], v_layers=v_layers)
+    cut = f"{variant}-{image_size}px-{v_layers}l"
+    synth.VARIANTS[cut] = dataclasses.replace(synth.VARIANTS[variant], v_layers=v_layers,
+                                              image_size=image_size)
     return synth.make_synthetic_gguf(path, cut, ftype="q4_0", towers="vision", seed=0)
 
 
@@ -380,8 +413,8 @@ def write_checkpoints(pool, tmp: str) -> dict:
     returns futures of their paths."""
     from clip_tpu_torch.synth import make_synthetic_gguf
 
-    futs = {name: pool.submit(write_cut, os.path.join(tmp, f"{name}_q4_0.gguf"), variant, n)
-            for name, (variant, n) in CUT_PATHS.items()}
+    futs = {name: pool.submit(write_cut, os.path.join(tmp, f"{name}_q4_0.gguf"), *spec)
+            for name, spec in CUT_PATHS.items()}
     futs.update({name: pool.submit(make_synthetic_gguf,
                                    os.path.join(tmp, f"vit-b-32_{name}.gguf"), "ViT-B/32",
                                    ftype=ft, towers=towers, seed=0)
@@ -406,9 +439,11 @@ def layer_launches(attn: str, mlp: str, rows: int) -> dict:
              "no_lnq": [_proj(rows), "mha_qkv", _proj(rows)],
              "i8_quant_o": ["lnq", "gemm_gq", "mha_qkv_i8"],
              "i8": ["lnq", "gemm_gq", "mha_qkv_i8", _proj(rows)],
+             "stream": ["attn_block_stream", "lnq"],
              "dense": ["mha_qkv"]}[attn]
     steps += {"block": ["mlp_lnq", "lnq"], "staged": ["lnq", "gemm_gq"],
-              "gq": ["mlp_gq", "gemm_gq", "w8a8_pre"], "dense": []}[mlp]
+              "gq": ["mlp_gq", "gemm_gq", "w8a8_pre"], "stream": ["mlp_lnq_stream", "lnq"],
+              "dense": []}[mlp]
     for w in steps:
         n[w] += 1
     return n
@@ -458,6 +493,10 @@ PATH_RUNS = {
     # lnq_fuse off: LN ahead of the projections, the up_gq MLP (mlp_gq)
     "b32_up_gq": ("q4_0", dict(lnq_fuse=False),
                   {"main": (64, True, _b32_calls("no_lnq", "gq"))}),
+    # ViT-B/16 at 384 px (S 577 padded to 584), all 12 layers: the streamed
+    # attention block at every batch, the whole-MLP block
+    "b16_384_stream_attn": ("b16_384", {}, {
+        f"b{n}": (n, False, [("vision", n * 584, "stream", "block")]) for n in (1, 8)}),
 }
 
 
@@ -735,6 +774,204 @@ def check_staged_kernels(device) -> dict:
     return out
 
 
+def check_stream_kernels(device) -> dict:
+    """Phase 4b: the kernels of the streamed routes and the last three TPU
+    kernels against their plain versions on the card.  Returns the inputs
+    and errors that the timing phase uses."""
+    import torch
+
+    from clip_tpu_torch.ops import actquant as aq
+    from clip_tpu_torch.ops import attention as at
+
+    rng = np.random.default_rng(9)
+    out: dict = {"args": {}}
+    fails: list[str] = []
+
+    def expect(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+
+    def close(name, got, want, min_cos=0.999, **tol) -> None:
+        """cos > ``min_cos``, finite, and allclose at ``tol`` where given;
+        records the largest difference as ``<name>_err``."""
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        c = cos(got, want)
+        ok = c > min_cos and bool(torch.isfinite(got).all())
+        if tol:
+            ok = ok and bool(torch.allclose(got, want, **tol))
+        expect(ok, f"{name}: cos {c}, max err {err}")
+        out[f"{name}_err"], out[f"{name}_cos"] = err, c
+
+    def equal(name, got, want) -> None:
+        expect(torch.equal(got, want), f"{name}: not bit-equal, max diff "
+               f"{float((got.double() - want.double()).abs().max())}")
+
+    def codes_close(name, codes, sx, pc, psx, rtol) -> None:
+        """Row-quant outputs: scales within ``rtol``, codes within 1 and all
+        but a 1e-4 share equal; records the largest difference of the
+        dequantized values as ``<name>_err``."""
+        groups = psx.numel() // psx.shape[0]
+        expect(bool(torch.allclose(sx, psx, rtol=rtol, atol=0)),
+               f"{name}: scales differ by {float(((sx - psx) / psx).abs().max())}")
+        diff = (codes.int() - pc.int()).abs()
+        n = int((diff > 0).sum())
+        expect(int(diff.max()) <= 1 and n <= 1e-4 * diff.numel(),
+               f"{name}: {n} codes differ, by up to {int(diff.max())}")
+        sxe = sx.reshape(sx.shape[0], groups).repeat_interleave(codes.shape[1] // groups, 1)
+        psxe = psx.reshape(sx.shape[0], groups).repeat_interleave(codes.shape[1] // groups, 1)
+        out[f"{name}_err"] = float((codes.float() * sxe - pc.float() * psxe).abs().max())
+        out[f"{name}_mismatch"] = n
+
+    def x_bf16(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device).bfloat16()
+
+    # row 8: ViT-B/16 at 384 px (B 1, S 584, valid 577, 12 heads: hg 4) and
+    # ViT-H/14 width at 280 px (B 2, S 408, 16 heads of 80: hg 8)
+    for name, (b, s, h, nh, vl, hg) in {"b16_384": (1, 584, 768, 12, 577, 4),
+                                        "h14_408": (2, 408, 1280, 16, None, 8)}.items():
+        wt = block_weights(rng, h, 4 * h, device)
+        x = x_bf16(b, s, h)
+        args = (x, wt["lnw"], wt["lnb"], wt["qw8"], wt["qws"], wt["qb"], wt["ow8"], wt["ows"],
+                wt["ob"])
+        kw = dict(n_head=nh, scale=(h // nh) ** -0.5, eps=1e-5, valid_len=vl, residual=True)
+        expect(at.stream_heads(b, s, h, 3 * h, h, nh) == hg, f"attn_block_stream {name}: hg")
+        got = at.attn_block_stream(*args, **kw)
+        close(f"attn_block_stream_{name}", got, at.attn_block_stream_plain(*args, **kw))
+        out["args"][f"attn_block_stream_{name}"] = (args, kw)
+        # one head group: the full-row requant and one o GEMM group, which is
+        # the resident block's chain bit for bit
+        one = at.attn_block_stream(*args, **{**kw, "hg": nh})
+        kw_ab = {k: v for k, v in kw.items() if k != "residual"}
+        equal(f"attn_block_stream {name} one group vs attn_block", one,
+              at.attn_block(*args, **kw_ab))
+    # the grouped requant alone, at the B/16-384 attention output
+    (x, lnw, lnb, qw8, qws, qb, _, _, _), kw = out["args"]["attn_block_stream_b16_384"]
+    c1, s1 = aq.lnq(x.reshape(584, 768), lnw, lnb, 1e-5)
+    att = at.attention_heads(aq.gemm_i8(c1, qw8, s1, qws, qb, aq.BIAS), 1, 584, 12,
+                             kw["scale"], valid_len=577)
+    codes_close("requant_group256", *aq.requant(att, group=256),
+                *aq.requant_plain(att, group=256), 1e-6)
+
+    # row 9 at ViT-H/14's MLP (64 x 264 rows, 1280 x 5120)
+    rows, h, f = 64 * 264, 1280, 5120
+    wt = block_weights(rng, h, f, device)
+    x = x_bf16(rows, h)
+    margs = (x, wt["lnw"], wt["lnb"], wt["up8"], wt["upws"], wt["upb"], wt["dn8"], wt["dnws"],
+             wt["dnb"])
+    resident = aq.mlp_lnq(*margs, eps=1e-5)
+    for name, kw in {"exact": dict(exact=True), "chunks8": dict(exact=False)}.items():
+        kw = dict(eps=1e-5, residual=True, **kw)
+        got = aq.mlp_lnq_stream(*margs, **kw)
+        close(f"mlp_lnq_stream_h14_{name}", got, aq.mlp_lnq_stream_plain(*margs, **kw))
+        out["args"][f"mlp_lnq_stream_h14_{name}"] = (margs, kw)
+    equal("mlp_lnq_stream exact vs mlp_lnq",
+          aq.mlp_lnq_stream(*margs, eps=1e-5, residual=True), resident)
+    equal("mlp_lnq_stream one chunk vs mlp_lnq",
+          aq.mlp_lnq_stream(*margs, eps=1e-5, residual=True, exact=False, n_chunks=1), resident)
+    # the grouped GEMM epilogue alone over the 8 chunks' codes: bit-equal to
+    # its plain version; with one group bit-equal to the residual epilogue
+    c1, s1 = aq.lnq(x, wt["lnw"], wt["lnb"], 1e-5)
+    y = aq.gemm_i8(c1, wt["up8"], s1, wt["upws"], wt["upb"], aq.GELU_QUICK)
+    c2, s2 = aq.requant(y, group=640)
+    codes_close("requant_group640", c2, s2, *aq.requant_plain(y, group=640), 1e-6)
+    gargs = (c2, wt["dn8"], s2, wt["dnws"], wt["dnb"], aq.GROUPED)
+    equal("gemm_i8 grouped 8 x 640", aq.gemm_i8(*gargs, resid=x, group=640),
+          aq.gemm_i8_plain(*gargs, resid=x, group=640))
+    equal("gemm_i8 grouped pre-bias", aq.gemm_i8(c2, wt["dn8"], s2, wt["dnws"], None,
+                                                 aq.GROUPED, group=640),
+          aq.gemm_i8_plain(c2, wt["dn8"], s2, wt["dnws"], None, aq.GROUPED, group=640))
+    c3, s3 = aq.requant(y)
+    equal("gemm_i8 one group vs resid", aq.gemm_i8(c3, wt["dn8"], s3[:, None], wt["dnws"],
+                                                   wt["dnb"], aq.GROUPED, resid=x, group=f),
+          aq.gemm_i8(c3, wt["dn8"], s3, wt["dnws"], wt["dnb"], aq.RESID, resid=x))
+
+    # row 11 at the H/14 up GEMM's output [16896, 5120], each act, f32 in;
+    # bf16 in once
+    yq = torch.from_numpy(rng.normal(0, 2, (rows, f)).astype(np.float32)).to(device)
+    for act in ("gelu_quick", "gelu_tanh", "none"):
+        codes_close(f"actq_{act}", *aq.actq(yq, act), *aq.actq_plain(yq, act), 1e-6)
+    codes_close("actq_gelu_quick_bf16", *aq.actq(yq.bfloat16(), "gelu_quick"),
+                *aq.actq_plain(yq.bfloat16(), "gelu_quick"), 1e-6)
+    out["args"]["actq"] = yq
+
+    # row 13 at ViT-B/32 vision [64, 50, 768] and causal text [8, 77, 512],
+    # bf16 and f32
+    for name, (b, s, h, nh, causal) in {"vision": (64, 50, 768, 12, False),
+                                        "text": (8, 77, 512, 8, True)}.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (x_bf16(b, s, h).to(dt) for _ in range(3))
+            kw = dict(n_head=nh, scale=(h // nh) ** -0.5, causal=causal)
+            got = at.mha(q, k, v, **kw)
+            expect(got.dtype == dt, f"mha {name}: dtype {got.dtype}")
+            tol = dict(rtol=1.6e-2, atol=1e-3) if dt == torch.bfloat16 else dict(rtol=0,
+                                                                                 atol=1e-4)
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            close(f"mha_{name}_{tag}", got, at.mha_plain(q, k, v, **kw), 0.9999, **tol)
+            out["args"][f"mha_{name}_{tag}"] = (q, k, v, kw)
+
+    # row 12 at ViT-B/32 vision [64, 50, 768] and causal text [8, 80, 512]
+    for name, (b, s, h, nh, causal) in {"vision": (64, 50, 768, 12, False),
+                                        "text": (8, 80, 512, 8, True)}.items():
+        wt = block_weights(rng, h, 4 * h, device)
+        x = x_bf16(b, s, h)
+        largs = (x, wt["lnw"], wt["lnb"], wt["qw8"], wt["qws"], wt["qb"], wt["ow8"], wt["ows"],
+                 wt["ob"], vec(rng, h, device, 1.0, 0.1), vec(rng, h, device), wt["up8"],
+                 wt["upws"], wt["upb"], wt["dn8"], wt["dnws"], wt["dnb"])
+        kw = dict(n_head=nh, scale=(h // nh) ** -0.5, eps=1e-5, causal=causal)
+        got = at.layer_block(*largs, **kw)
+        close(f"layer_block_{name}", got, at.layer_block_plain(*largs, **kw))
+        xm = at.attn_block(*largs[:9], **kw).reshape(b * s, h)
+        equal(f"layer_block {name} vs attn_block + mlp_lnq", got,
+              aq.mlp_lnq(xm, *largs[9:], eps=1e-5).reshape(b, s, h))
+        out["args"][f"layer_block_{name}"] = (largs, kw)
+    if fails:
+        raise AssertionError("stream kernel checks failed:\n  " + "\n  ".join(fails))
+    torch.cuda.synchronize()
+    return out
+
+
+def mlp_stream_path(eng) -> dict:
+    """Phase: the cut ViT-H/14 tower (8 layers) at B = 64 through
+    ``encode_image(..., mlp_stream=True)`` with the launch counters set to 0
+    just before and read just after: every MLP on the streamed block (row
+    9, ``exact=True``).  Its embeddings must equal the default staged
+    route's on the same pixels bit for bit.  Both are timed."""
+    import torch
+
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.models.vision import encode_image
+
+    cfg = eng.config.vision
+    px = np.random.default_rng(8).standard_normal((64, cfg.image_size, cfg.image_size, 3),
+                                                  dtype=np.float32)
+    px = torch.from_numpy(px).cuda().bfloat16()
+
+    def tower(**flags):
+        with torch.inference_mode():
+            return encode_image(eng.params["vision"], cfg, px, use_gelu=eng.config.use_gelu,
+                                compute_dtype=torch.bfloat16, **eng.tower_flags(), **flags)
+
+    ops.reset_launches()
+    got = tower(mlp_stream=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if k in PATH_WRAPPERS}
+    expect = expected_launches(eng, [("vision", 64 * 264, "block", "stream")])
+    assert launches == expect, f"h14 mlp_stream: launches {launches}, expected {expect}"
+    want = tower()
+    assert bool(torch.isfinite(got).all()), "h14 mlp_stream: embeddings not finite"
+    assert torch.equal(got, want), ("h14 mlp_stream: not bit-equal to the default route, max "
+                                    f"diff {float((got.float() - want.float()).abs().max())}")
+    stream_ms = [cuda_ms(lambda: tower(mlp_stream=True), iters=3, warmup=1 if i == 0 else 0)
+                 for i in range(3)]
+    default_ms = [cuda_ms(tower, iters=3, warmup=1 if i == 0 else 0) for i in range(3)]
+    return dict(shape=(64, 264, cfg.hidden_size, cfg.n_intermediate), layers=cfg.n_layer,
+                launches=launches, bit_equal_to_default=True,
+                tower_median_ms=statistics.median(stream_ms), tower_runs_ms=stream_ms,
+                default_route_median_ms=statistics.median(default_ms),
+                default_route_runs_ms=default_ms)
+
+
 def qmatmul_bytes(m: int, w) -> int:
     """Compulsory bytes of ``x [m, K] bf16 @ dequant(w)[N, K].T -> bf16``:
     the activations, the packed weight fields, the output."""
@@ -871,6 +1108,125 @@ def staged_timing(schk: dict, engines: dict) -> dict:
                 "stack_ms": stack_ms, "ms_per_layer": stack_ms / cfg.n_layer}
             if b == batches[-1]:
                 res[f"tower_{name}_b{b}_profile"] = profile_kernels(tower)
+    return res
+
+
+def stream_bounds(sck: dict) -> dict:
+    """Bounds of the last five kernels at the shapes of their kernels line:
+    each input read once, each output written once, int8 products at the
+    int8 peak, the attention products at the bf16 peak."""
+    a = sck["args"]
+    vecs = lambda n: 4 * n  # noqa: E731  (f32 vector bytes)
+    out = {}
+    (x, *_), kw = a["attn_block_stream_b16_384"]
+    b, s, h = x.shape
+    rows, nh = b * s, kw["n_head"]
+    out["attn_block_stream"] = bound(
+        2 * rows * h * 2 + 4 * h * h + 4 * vecs(h) + 2 * vecs(3 * h),
+        int8_ops=2 * rows * 4 * h * h, bf16_flops=4 * b * s * s * h)
+    (x, *_), kw = a["mlp_lnq_stream_h14_exact"]
+    rows, h = x.shape
+    f = 4 * h
+    out["mlp_lnq_stream"] = bound(2 * rows * h * 2 + 2 * f * h + 4 * vecs(h) + 2 * vecs(f),
+                                  int8_ops=2 * rows * 2 * f * h)
+    yq = a["actq"]
+    out["actq"] = bound(yq.numel() * 4 + yq.numel() + 4 * yq.shape[0])
+    (x, *_), kw = a["layer_block_vision"]
+    b, s, h = x.shape
+    rows, f = b * s, 4 * h
+    out["layer_block"] = bound(
+        2 * rows * h * 2 + 4 * h * h + 2 * f * h + 8 * vecs(h) + 2 * vecs(3 * h) + 2 * vecs(f),
+        int8_ops=2 * rows * (4 * h * h + 2 * f * h), bf16_flops=4 * b * s * s * h)
+    q, _, _, kw = a["mha_vision_bf16"]
+    b, s, h = q.shape
+    out["mha"] = bound(4 * b * s * h * 2, bf16_flops=4 * b * s * s * h)
+    return out
+
+
+def stream_timing(sck: dict, engines: dict) -> dict:
+    """Phase: device times (CUDA-graph replay) of the last five kernels and
+    their plain versions at the shapes checked, SDPA on the same q, k, v
+    beside ``mha`` (the same function but for the TPU kernel's clipped
+    softmax and its bf16 p), and the ViT-B/16-384 tower at B = 1 and 8,
+    whole and per layer, with its profile at B = 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_tpu_torch.models.transformer import run_blocks
+    from clip_tpu_torch.models.vision import encode_image, pad_once
+    from clip_tpu_torch.ops import actquant as aq
+    from clip_tpu_torch.ops import attention as at
+
+    a = sck["args"]
+    res: dict = {}
+    for name in ("b16_384", "h14_408"):
+        args, kw = a[f"attn_block_stream_{name}"]
+        res[f"attn_block_stream_{name}_ms"] = graph_ms(lambda: at.attn_block_stream(*args, **kw))
+    args, kw = a["attn_block_stream_b16_384"]
+    res["attn_block_stream_b16_384_plain_ms"] = graph_ms(
+        lambda: at.attn_block_stream_plain(*args, **kw), iters=10)
+    x8 = torch.randn(8, 584, 768, device="cuda").bfloat16()
+    res["attn_block_stream_b16_384_b8_ms"] = graph_ms(
+        lambda: at.attn_block_stream(x8, *args[1:], **kw))
+    for name in ("exact", "chunks8"):
+        args, kw = a[f"mlp_lnq_stream_h14_{name}"]
+        res[f"mlp_lnq_stream_h14_{name}_ms"] = graph_ms(lambda: aq.mlp_lnq_stream(*args, **kw))
+    args, kw = a["mlp_lnq_stream_h14_exact"]
+    res["mlp_lnq_stream_h14_exact_plain_ms"] = graph_ms(
+        lambda: aq.mlp_lnq_stream_plain(*args, **kw), iters=5)
+    yq = a["actq"]
+    res["actq_ms"] = graph_ms(lambda: aq.actq(yq, "gelu_quick"))
+    res["actq_plain_ms"] = graph_ms(lambda: aq.actq_plain(yq, "gelu_quick"), iters=10)
+    yq16 = yq.bfloat16()
+    res["actq_bf16_ms"] = graph_ms(lambda: aq.actq(yq16, "gelu_quick"))
+    for name in ("vision", "text"):
+        largs, kw = a[f"layer_block_{name}"]
+        res[f"layer_block_{name}_ms"] = graph_ms(lambda: at.layer_block(*largs, **kw))
+    largs, kw = a["layer_block_vision"]
+    res["layer_block_vision_plain_ms"] = graph_ms(lambda: at.layer_block_plain(*largs, **kw),
+                                                  iters=10)
+    for key in ("vision_bf16", "vision_f32", "text_bf16", "text_f32"):
+        q, k, v, kw = a[f"mha_{key}"]
+        b, s, h = q.shape
+        nh = kw["n_head"]
+        res[f"mha_{key}_ms"] = graph_ms(lambda: at.mha(q, k, v, **kw))
+        qh, kh, vh = (t.view(b, s, nh, h // nh).transpose(1, 2) for t in (q, k, v))
+        try:
+            res[f"sdpa_{key}_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=kw["causal"], scale=kw["scale"]))
+        except RuntimeError as e:
+            res[f"sdpa_{key}_ms"] = f"not measured: {str(e).splitlines()[0]}"
+    q, k, v, kw = a["mha_vision_bf16"]
+    res["mha_vision_bf16_plain_ms"] = graph_ms(lambda: at.mha_plain(q, k, v, **kw), iters=10)
+
+    eng = engines["b16_384_stream_attn"]
+    cfg = eng.config.vision
+    layers = eng.params["vision"]["layers"]
+    s_real = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    for b in (1, 8):
+        px = torch.randn(b, cfg.image_size, cfg.image_size, 3, device="cuda").bfloat16()
+
+        def tower(px=px):
+            with torch.inference_mode():
+                return encode_image(eng.params["vision"], cfg, px, use_gelu=False,
+                                    compute_dtype=torch.bfloat16, **eng.tower_flags())
+
+        sp = pad_once(b, s_real, cfg, True)
+        x = torch.randn(b, sp, cfg.hidden_size, device="cuda").bfloat16()
+
+        def stack(x=x):
+            with torch.inference_mode():
+                return run_blocks(x, layers, n_head=cfg.n_head, eps=cfg.eps, use_gelu=False,
+                                  valid_len=s_real, **eng.tower_flags())
+
+        tower_ms = [cuda_ms(tower, iters=3, warmup=1 if i == 0 else 0) for i in range(3)]
+        stack_ms = cuda_ms(stack, iters=3, warmup=1)
+        res[f"tower_b16_384_b{b}"] = {
+            "layers": cfg.n_layer, "seq": sp, "valid_len": s_real,
+            "tower_median_ms": statistics.median(tower_ms), "tower_runs_ms": tower_ms,
+            "stack_ms": stack_ms, "ms_per_layer": stack_ms / cfg.n_layer}
+        if b == 8:
+            res["tower_b16_384_b8_profile"] = profile_kernels(tower)
     return res
 
 
@@ -1092,6 +1448,10 @@ def main() -> int:
         schk = check_staged_kernels(device)
         phase_line("staged_kernels", t0, **{k: v for k, v in schk.items() if k != "args"})
 
+        t0 = time.perf_counter()
+        sck = check_stream_kernels(device)
+        phase_line("stream_kernels", t0, **{k: v for k, v in sck.items() if k != "args"})
+
         paths: dict = {}
         for name, (ckpt, engine_kw, drives) in PATH_RUNS.items():
             t0 = time.perf_counter()
@@ -1109,6 +1469,10 @@ def main() -> int:
     for name in ("q5_1", "q8_0", "b32_up_gq"):
         del engines[name]
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ms = mlp_stream_path(engines["h14_staged_mlp"])
+    phase_line("h14_mlp_stream", t0, **ms)
 
     t0 = time.perf_counter()
     ls = long_sequence(engines["l14_336_staged_attn"])
@@ -1129,7 +1493,11 @@ def main() -> int:
     st = staged_timing(schk, engines)
     phase_line("staged_timing", t0, card=smi, **st)
 
-    bounds = {**kernel_bounds(chk), **staged_bounds(schk)}
+    t0 = time.perf_counter()
+    sst = stream_timing(sck, engines)
+    phase_line("stream_timing", t0, card=smi, **sst)
+
+    bounds = {**kernel_bounds(chk), **staged_bounds(schk), **stream_bounds(sck)}
     v = tm["vision"]
 
     def row(name, source, replaces, launches, ms, plain_ms, err, bound_key, library_ms=None):
@@ -1142,6 +1510,12 @@ def main() -> int:
 
     def main_launches(path, name):
         return paths[path]["launches"]["main"][name]
+
+    def run_launches(name):
+        """Launches of ``name`` summed over every path run of the smoke."""
+        counts = [d for p in paths.values() for d in p["launches"].values()]
+        counts += [ms["launches"], ls["launches"]] + [r["launches"] for r in i8.values()]
+        return sum(d[name] for d in counts)
 
     kernels = [
         row("attn_block", "attention.cu", "attention_pallas.py:484",
@@ -1176,6 +1550,25 @@ def main() -> int:
             sum(r["launches"]["mha_qkv_i8"] for r in i8.values()), st["mha_qkv_i8_vision_ms"],
             st["mha_qkv_i8_vision_plain_ms"], schk["mha_qkv_i8_vision_err"], "mha_qkv_i8",
             st["sdpa_i8_vision_ms"]),
+        # rows 8-13: launches over every path run; no route reaches actq,
+        # layer_block or mha, and every path asserts their count (0)
+        row("attn_block_stream", "actquant.cu", "attention_pallas.py:648",
+            run_launches("attn_block_stream"),
+            sst["attn_block_stream_b16_384_ms"], sst["attn_block_stream_b16_384_plain_ms"],
+            sck["attn_block_stream_b16_384_err"], "attn_block_stream"),
+        row("mlp_lnq_stream", "actquant.cu", "actquant_pallas.py:483",
+            ms["launches"]["mlp_lnq_stream"], sst["mlp_lnq_stream_h14_exact_ms"],
+            sst["mlp_lnq_stream_h14_exact_plain_ms"], sck["mlp_lnq_stream_h14_exact_err"],
+            "mlp_lnq_stream"),
+        row("actq", "actquant.cu", "actquant_pallas.py:119", run_launches("actq"),
+            sst["actq_ms"], sst["actq_plain_ms"], sck["actq_gelu_quick_err"], "actq"),
+        row("layer_block", "attention.cu", "attention_pallas.py:877", run_launches("layer_block"),
+            sst["layer_block_vision_ms"], sst["layer_block_vision_plain_ms"],
+            sck["layer_block_vision_err"], "layer_block"),
+        row("mha", "attention.cu", "attention_pallas.py:1119", run_launches("mha"),
+            sst["mha_vision_bf16_ms"], sst["mha_vision_bf16_plain_ms"],
+            sck["mha_vision_bf16_err"], "mha",
+            sst["sdpa_vision_bf16_ms"]),
     ]
     say(f"[total] {time.perf_counter() - T_START:.2f}s")
     say(json.dumps({"kernels": kernels}))

@@ -7,6 +7,12 @@
 //   clip_tpu/ops/actquant_pallas.py:296 mlp_gq_pallas (gemm_gq, then
 //     ctt_gemm_i8 with the PRE epilogue),
 // and of the XLA-level w8a8_pre (actquant_pallas.py:658; the PRE epilogue),
+//   clip_tpu/ops/actquant_pallas.py:119 actq_pallas (ctt_requant with an
+//     activation prologue and a bf16 or f32 input),
+//   clip_tpu/ops/actquant_pallas.py:483 mlp_lnq_stream_pallas and the o half
+//     of clip_tpu/ops/attention_pallas.py:648 attn_block_stream_pallas
+//     (ctt_requant per group of columns, then ctt_gemm_i8 with the grouped
+//     epilogue, below),
 // with the building blocks they share with the attention block
 // (attention.cu): the LN + row-quant prologue, the int8 GEMM with its
 // epilogues, and the row requant.
@@ -102,29 +108,64 @@ lnq_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   if (threadIdx.x == 0) scales[row] = sx;
 }
 
+__device__ __forceinline__ float gelu_quick(float y) {
+  return __fmul_rn(y, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, y)))));
+}
+
+__device__ __forceinline__ float gelu_tanh(float y) {
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, y), y), y);
+  const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(y, cube)));
+  return __fmul_rn(__fmul_rn(0.5f, y), __fadd_rn(1.f, t));
+}
+
+// activation prologue of ctt_requant (actq_pallas's act)
+enum Act : int { kActNone = 0, kActGeluQuick = 1, kActGeluTanh = 2 };
+
+__device__ __forceinline__ float act_fn(float y, int act) {
+  return act == kActGeluQuick ? gelu_quick(y) : act == kActGeluTanh ? gelu_tanh(y) : y;
+}
+
+// four consecutive inputs as f32 (16-byte f32 or 8-byte bf16 loads)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 constexpr int kRqThreads = 256;
 
+// One block per (row, group of g columns): act(y) in f32, the group's amax,
+// then its int8 codes.  The activation is recomputed in the second pass
+// (the same instructions, so the same values) rather than staged.  Scales
+// are [rows, n / g]; g == n is the full-row requant.
+template <typename InT>
 __global__ void __launch_bounds__(kRqThreads)
-requant_kernel(const float* __restrict__ y, int8_t* __restrict__ codes,
-               float* __restrict__ scales, int n) {
+requant_kernel(const InT* __restrict__ y, int8_t* __restrict__ codes,
+               float* __restrict__ scales, int n, int g, int act) {
   __shared__ float sh[32];
-  const size_t row = blockIdx.x;
-  const float4* yr = reinterpret_cast<const float4*>(y + row * n);
-  const int n4 = n >> 2;
+  const size_t off = (size_t)blockIdx.x * n + (size_t)blockIdx.y * g;
+  const InT* yr = y + off;
+  const int g4 = g >> 2;
   float amax = 0.f;
-  for (int i = threadIdx.x; i < n4; i += kRqThreads) {
-    const float4 q = yr[i];
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(q.x), fabsf(q.y)), fmaxf(fabsf(q.z), fabsf(q.w))));
+  for (int i = threadIdx.x; i < g4; i += kRqThreads) {
+    const float4 q = load4(yr + 4 * i);
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(act_fn(q.x, act)), fabsf(act_fn(q.y, act))),
+                             fmaxf(fabsf(act_fn(q.z, act)), fabsf(act_fn(q.w, act)))));
   }
   amax = ctt::block_max(amax, sh);
   const float sx = ctt::row_scale(amax);
-  char4* cr = reinterpret_cast<char4*>(codes + row * n);
-  for (int i = threadIdx.x; i < n4; i += kRqThreads) {
-    const float4 q = yr[i];
-    cr[i] = make_char4(ctt::quant_code(q.x, sx), ctt::quant_code(q.y, sx),
-                       ctt::quant_code(q.z, sx), ctt::quant_code(q.w, sx));
+  char4* cr = reinterpret_cast<char4*>(codes + off);
+  for (int i = threadIdx.x; i < g4; i += kRqThreads) {
+    const float4 q = load4(yr + 4 * i);
+    cr[i] = make_char4(ctt::quant_code(act_fn(q.x, act), sx), ctt::quant_code(act_fn(q.y, act), sx),
+                       ctt::quant_code(act_fn(q.z, act), sx), ctt::quant_code(act_fn(q.w, act), sx));
   }
-  if (threadIdx.x == 0) scales[row] = sx;
+  if (threadIdx.x == 0) scales[(size_t)blockIdx.x * gridDim.y + blockIdx.y] = sx;
 }
 
 // ---------------------------------------------------------------------------
@@ -139,6 +180,10 @@ enum GemmMode : int {
   kResidBf16 = 4,  // bf16(x + bf16(bf16(acc*sx*ws) + bf16(b)))   (o, down)
   kPreBf16 = 5,    // bf16(acc*sx*ws)                            (w8a8_pre)
   kBiasF32 = 6,    // f32 acc*sx*ws + b                          (gemm_gq act=none)
+  kGrouped = 7,    // K in groups of g, sx [M, K / g]:            (streamed o, down)
+                   //   acc = sum over groups, in group order, of
+                   //   (f32(acc_g) * sx[r, grp]) * ws; then t = bf16(acc),
+                   //   t = bf16(t + bf16(b)) with a bias, bf16(x + t) with x
 };
 
 constexpr int BM = 128, BN = 128, BK = 64;
@@ -178,21 +223,18 @@ __device__ __forceinline__ float epi_scale(int acc, float sx, float ws) {
   return __fmul_rn(__fmul_rn((float)acc, sx), ws);
 }
 
-__device__ __forceinline__ float gelu_quick(float y) {
-  return __fmul_rn(y, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, y)))));
-}
-
-__device__ __forceinline__ float gelu_tanh(float y) {
-  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, y), y), y);
-  const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(y, cube)));
-  return __fmul_rn(__fmul_rn(0.5f, y), __fadd_rn(1.f, t));
-}
-
+// kGrouped (the Grouped instantiation) is the epilogue of the TPU's streamed
+// kernels: their o and down GEMMs take one int8 operand quantized per group
+// of K columns (a head group, a 4H chunk), each group with its own row
+// scale, so the int32 accumulator is flushed into an f32 one at the end of
+// each group (g a multiple of BK) and cleared.  With one group (g == K) it
+// equals kResidBf16 bit for bit.
+template <bool Grouped>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N, int K,
                const float* __restrict__ sx, const float* __restrict__ ws,
                const float* __restrict__ bias, const __nv_bfloat16* __restrict__ resid,
-               void* __restrict__ out, int mode) {
+               void* __restrict__ out, int mode, int group) {
   __shared__ __align__(16) int8_t As[2][BM * LDS];
   __shared__ __align__(16) int8_t Bs[2][BN * LDS];
 
@@ -212,8 +254,10 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  float facc[4][4][4];  // Grouped: the f32 sum over the groups flushed so far
 
   const int kt_n = K / BK;
+  const int kt_group = group / BK, n_groups = K / max(group, 1);
   load_tile(As[0], Ab, rows_a, K, 0);
   load_tile(Bs[0], Bb, rows_b, K, 0);
   cp_async_commit();
@@ -254,6 +298,61 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M
         for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
     }
     __syncthreads();
+    if constexpr (Grouped) {
+      if ((kt + 1) % kt_group == 0) {
+        const int grp = kt / kt_group;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = m0 + wm + i * 16 + g + half * 8;
+            const float s = r < M ? sx[(size_t)r * n_groups + grp] : 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = n0 + wn + j * 8 + t * 2;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int idx = half * 2 + e;
+                const float p = c + e < N ? epi_scale(acc[i][j][idx], s, ws[c + e]) : 0.f;
+                facc[i][j][idx] = grp == 0 ? p : __fadd_rn(facc[i][j][idx], p);
+                acc[i][j][idx] = 0;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (Grouped) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + wm + i * 16 + g + half * 8;
+        if (r >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + wn + j * 8 + t * 2;
+          if (c >= N) continue;
+          const size_t o = (size_t)r * N + c;
+          float t0 = bf16_round(facc[i][j][half * 2]);
+          float t1 = bf16_round(facc[i][j][half * 2 + 1]);
+          if (bias != nullptr) {
+            t0 = bf16_round(t0 + bf16_round(bias[c]));
+            t1 = bf16_round(t1 + bf16_round(bias[c + 1]));
+          }
+          if (resid != nullptr) {
+            const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(resid + o);
+            t0 = __low2float(xr) + t0;
+            t1 = __high2float(xr) + t1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+              __floats2bfloat162_rn(t0, t1);
+        }
+      }
+    }
+    return;
   }
 
   // epilogue: acc[i][j][0..1] -> row r0, cols c, c+1; [2..3] -> row r0 + 8
@@ -317,20 +416,35 @@ int ctt_lnq(const void* x, const float* w, const float* b, int8_t* codes, float*
   return (int)cudaGetLastError();
 }
 
-// y f32 [rows, n] -> codes int8 [rows, n], scales f32 [rows]; n % 4 == 0
-int ctt_requant(const float* y, int8_t* codes, float* scales, int rows, int n,
-                cudaStream_t stream) {
-  requant_kernel<<<rows, kRqThreads, 0, stream>>>(y, codes, scales, n);
+// y [rows, n], f32 or (in_bf16) bf16 -> act(y) quantized per group of g
+//   columns: codes int8 [rows, n], scales f32 [rows, n / g]; act an Act;
+//   n % g == 0, g % 4 == 0
+int ctt_requant(const void* y, int8_t* codes, float* scales, int rows, int n, int g, int act,
+                int in_bf16, cudaStream_t stream) {
+  const dim3 grid(rows, n / g);
+  if (in_bf16)
+    requant_kernel<<<grid, kRqThreads, 0, stream>>>(static_cast<const __nv_bfloat16*>(y), codes,
+                                                    scales, n, g, act);
+  else
+    requant_kernel<<<grid, kRqThreads, 0, stream>>>(static_cast<const float*>(y), codes, scales,
+                                                    n, g, act);
   return (int)cudaGetLastError();
 }
 
-// a int8 [m, k], b int8 [n, k] -> out [m, n] per GemmMode; k % 64 == 0, n % 8 == 0
+// a int8 [m, k], b int8 [n, k] -> out [m, n] per GemmMode; k % 64 == 0, n % 8 == 0.
+//   kGrouped: sx [m, k / group], group % 64 == 0, k % group == 0; bias and
+//   resid may be null.
 int ctt_gemm_i8(const int8_t* a, const int8_t* b, int m, int n, int k, const float* sx,
                 const float* ws, const float* bias, const void* resid, void* out, int mode,
-                cudaStream_t stream) {
+                int group, cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_i8_kernel<<<grid, kGemmThreads, 0, stream>>>(
-      a, b, m, n, k, sx, ws, bias, static_cast<const __nv_bfloat16*>(resid), out, mode);
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(resid);
+  if (mode == kGrouped)
+    gemm_i8_kernel<true><<<grid, kGemmThreads, 0, stream>>>(a, b, m, n, k, sx, ws, bias, x, out,
+                                                            mode, group);
+  else
+    gemm_i8_kernel<false><<<grid, kGemmThreads, 0, stream>>>(a, b, m, n, k, sx, ws, bias, x,
+                                                             out, mode, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,18 @@
-// Hopper counterpart of the attention core of two TPU kernels of the JAX
+// Hopper counterpart of the attention core of these TPU kernels of the JAX
 // package:
 //   clip_tpu/ops/attention_pallas.py:484 attn_block_pallas (body
 //     _attn_half:397), whose per-head f32 output feeds the int8 requant;
 //   clip_tpu/ops/attention_pallas.py:1014 mha_pallas_qkv (bodies
 //     _qkv_kernel_flat:160 and _qkv_kernel:120), whose per-head output is
 //     rounded to the compute dtype (o_ref[...] = out.astype(o_ref.dtype)).
-// Both share the softmax _softmax_rows:52.
+//   clip_tpu/ops/attention_pallas.py:1119 mha_pallas (body _mha_kernel:82),
+//     attention over separate q, k, v [B, S, H] in bf16 or f32 with the
+//     output in the input's dtype: the same kernel with three base pointers
+//     and a row stride (the TPU kernel pads S and masks the pad keys; here
+//     the keys >= S simply do not exist);
+//   the core of clip_tpu/ops/attention_pallas.py:648 attn_block_stream_pallas
+//     (f32 out, requantized per head group by ctt_requant).
+// All share the softmax _softmax_rows:52.
 //
 // The TPU attention block keeps both int8 projection weights resident in
 // VMEM (1.7 MB for ViT-B/32's qkv alone, more than an SM's shared memory).
@@ -30,8 +37,10 @@
 // warp reduction, p = e / sum rounded to bf16, then p.V with one pair of
 // output columns per lane.  The output is f32, or rounded to bf16.
 //
-// Shared memory: 2 S (dh + 2) x 2 B for K and V + 4 S x 4 B of p rows +
-// 4 dh x 4 B of query rows.  Q is not staged, so every S <= 640 (the TPU's
+// Shared memory: 2 S (dh + 2) x 2 B for K and V (x 4 B for f32 input) + 4 S
+// x 4 B of p rows + 4 dh x 4 B of query rows.  In f32 (mha_pallas on f32
+// inputs) q * scale and p stay f32, as the TPU kernel's astype(q.dtype)
+// leaves them.  Q is not staged, so every S <= 640 (the TPU's
 // single-image bound _FLAT_MAX_S1) fits at dh = 64 and 80: 220.2 KB at
 // S = 640, dh = 80, under the 232,448 B a block may have (161.6 KB at
 // ViT-L/14-336's S = 577).  The wrapper checks the size before the launch.
@@ -74,50 +83,74 @@ __device__ __forceinline__ void store2(__nv_bfloat16* row, int d, float x, float
   reinterpret_cast<__nv_bfloat162*>(row)[d] = __floats2bfloat162_rn(x, y);
 }
 
-template <typename OutT>
+// the d-th pair of a row as f32, and the pair type that copies it
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* row, int d) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[d]);
+}
+
+__device__ __forceinline__ float2 load2(const float* row, int d) {
+  return reinterpret_cast<const float2*>(row)[d];
+}
+
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct Pair<float> { using type = float2; };
+
+// rounding to the input dtype (the TPU kernels' astype(q.dtype))
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return ctt::bf16_round(v);
+}
+
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+
+// q, k and v rows of head `head` start at q/k/v + row * ld + head * dh, so
+// one kernel serves the packed projection (k = q + Hl, v = q + 2 Hl,
+// ld = 3 Hl) and separate q, k, v [B*S, H] (ld = H).  The output is
+// [B*S, n_head * dh].
+template <typename InT, typename OutT>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attention_kernel(const __nv_bfloat16* __restrict__ qkv, OutT* __restrict__ out, int S,
+attention_kernel(const InT* __restrict__ qp, const InT* __restrict__ kp,
+                 const InT* __restrict__ vp, int ld, OutT* __restrict__ out, int S,
                  int n_head, int dh, float scale, int causal, int valid_len) {
+  using P2 = typename Pair<InT>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int head = blockIdx.x, img = blockIdx.y;
   const int hl = n_head * dh;
-  const int ld = dh + 2;  // odd number of 32-bit words per row
+  const int lds = dh + 2;  // bf16: an odd number of 32-bit words per row
   const int dh2 = dh >> 1;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + S * ld;
-  float* P = reinterpret_cast<float*>(Vs + S * ld);
+  InT* Ks = reinterpret_cast<InT*>(smem_raw);
+  InT* Vs = Ks + S * lds;
+  float* P = reinterpret_cast<float*>(Vs + S * lds);
   float* Qr = P + kAttnWarps * S;
 
   const size_t row0 = (size_t)img * S;
   for (int idx = threadIdx.x; idx < S * dh2; idx += blockDim.x) {
     const int r = idx / dh2, c2 = idx - r * dh2;
-    const __nv_bfloat162* src =
-        reinterpret_cast<const __nv_bfloat162*>(qkv + (row0 + r) * 3 * hl + head * dh) + c2;
-    reinterpret_cast<__nv_bfloat162*>(Ks + r * ld)[c2] = src[hl / 2];
-    reinterpret_cast<__nv_bfloat162*>(Vs + r * ld)[c2] = src[hl];
+    const size_t o = (row0 + r) * ld + head * dh;
+    reinterpret_cast<P2*>(Ks + r * lds)[c2] = reinterpret_cast<const P2*>(kp + o)[c2];
+    reinterpret_cast<P2*>(Vs + r * lds)[c2] = reinterpret_cast<const P2*>(vp + o)[c2];
   }
   __syncthreads();
 
-  // q * scale in the compute dtype, as the TPU kernel does
-  const float sc = ctt::bf16_round(scale);
+  // q * scale in the input dtype, as the TPU kernels do
+  const float sc = round_to(scale, qp);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* p = P + warp * S;
   float* q = Qr + warp * dh;
   for (int i = warp; i < S; i += kAttnWarps) {
-    const __nv_bfloat162* qsrc =
-        reinterpret_cast<const __nv_bfloat162*>(qkv + (row0 + i) * 3 * hl + head * dh);
+    const InT* qsrc = qp + (row0 + i) * ld + head * dh;
     for (int d = lane; d < dh2; d += 32) {
-      const float2 qf = __bfloat1622float2(qsrc[d]);
-      q[2 * d] = ctt::bf16_round(qf.x * sc);
-      q[2 * d + 1] = ctt::bf16_round(qf.y * sc);
+      const float2 qf = load2(qsrc, d);
+      q[2 * d] = round_to(qf.x * sc, qp);
+      q[2 * d + 1] = round_to(qf.y * sc, qp);
     }
     __syncwarp();
     float lsum = 0.f;
     for (int j = lane; j < S; j += 32) {
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(Ks + j * ld);
+      const InT* kr = Ks + j * lds;
       float acc = 0.f;
       for (int d = 0; d < dh2; ++d) {
-        const float2 kf = __bfloat1622float2(k2[d]);
+        const float2 kf = load2(kr, d);
         acc = fmaf(q[2 * d], kf.x, acc);
         acc = fmaf(q[2 * d + 1], kf.y, acc);
       }
@@ -128,14 +161,14 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, OutT* __restrict__ out, 
     }
     lsum = ctt::warp_sum(lsum);
     __syncwarp();
-    for (int j = lane; j < S; j += 32) p[j] = ctt::bf16_round(__fdiv_rn(p[j], lsum));
+    for (int j = lane; j < S; j += 32) p[j] = round_to(__fdiv_rn(p[j], lsum), qp);
     __syncwarp();
     OutT* orow = out + (row0 + i) * hl + head * dh;
     for (int d = lane; d < dh2; d += 32) {
       float ax = 0.f, ay = 0.f;
       for (int j = 0; j < S; ++j) {
         const float pj = p[j];
-        const float2 vf = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(Vs + j * ld)[d]);
+        const float2 vf = load2(Vs + j * lds, d);
         ax = fmaf(pj, vf.x, ax);
         ay = fmaf(pj, vf.y, ay);
       }
@@ -145,19 +178,19 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, OutT* __restrict__ out, 
   }
 }
 
-template <typename OutT>
-int launch(const void* qkv, void* out, int b, int s, int n_head, int dh, float scale,
-           int causal, int valid_len, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * s * (dh + 2) * 2 + (size_t)kAttnWarps * (s + dh) * 4;
+template <typename InT, typename OutT>
+int launch(const void* q, const void* k, const void* v, int ld, void* out, int b, int s,
+           int n_head, int dh, float scale, int causal, int valid_len, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * s * (dh + 2) * sizeof(InT) + (size_t)kAttnWarps * (s + dh) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attention_kernel<InT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_head, b);
-  attention_kernel<OutT><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<OutT*>(out), s, n_head, dh, scale,
-      causal, valid_len);
+  attention_kernel<InT, OutT><<<grid, kAttnWarps * 32, smem, stream>>>(
+      static_cast<const InT*>(q), static_cast<const InT*>(k), static_cast<const InT*>(v), ld,
+      static_cast<OutT*>(out), s, n_head, dh, scale, causal, valid_len);
   return (int)cudaGetLastError();
 }
 
@@ -258,14 +291,27 @@ int launch_i8(const void* qkv, const float* sx, void* out, int b, int s, int n_h
 
 extern "C" {
 
-// qkv bf16 [b*s, 3*n_head*dh] (q | k | v, heads contiguous in each third)
-//   -> out [b*s, n_head*dh], f32 (out_bf16 == 0) or bf16; dh even.  Keys
-//   j >= valid_len are masked, and with `causal` keys j > i.
-int ctt_attention(const void* qkv, void* out, int b, int s, int n_head, int dh, float scale,
-                  int causal, int valid_len, int out_bf16, cudaStream_t stream) {
-  return out_bf16 ? launch<__nv_bfloat16>(qkv, out, b, s, n_head, dh, scale, causal, valid_len,
-                                          stream)
-                  : launch<float>(qkv, out, b, s, n_head, dh, scale, causal, valid_len, stream);
+// q, k, v rows of `ld` elements ([b*s, ...]; head h of a row at h * dh) ->
+//   out [b*s, n_head*dh].  io: 0 bf16 in, f32 out; 1 bf16 in, bf16 out;
+//   2 f32 in, f32 out.  dh even, ld even.  Keys j >= valid_len are masked,
+//   and with `causal` keys j > i.  The packed projection qkv [b*s, 3*Hl] is
+//   q = qkv, k = qkv + Hl, v = qkv + 2 Hl, ld = 3 Hl.
+int ctt_attention(const void* q, const void* k, const void* v, int ld, void* out, int b, int s,
+                  int n_head, int dh, float scale, int causal, int valid_len, int io,
+                  cudaStream_t stream) {
+  switch (io) {
+    case 0:
+      return launch<__nv_bfloat16, float>(q, k, v, ld, out, b, s, n_head, dh, scale, causal,
+                                          valid_len, stream);
+    case 1:
+      return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, ld, out, b, s, n_head, dh, scale,
+                                                  causal, valid_len, stream);
+    case 2:
+      return launch<float, float>(q, k, v, ld, out, b, s, n_head, dh, scale, causal, valid_len,
+                                  stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // codes int8 [b*s, 3*n_head*dh] (q | k | v, heads contiguous in each third)

@@ -14,21 +14,22 @@ type, as in the JAX package (:func:`route`):
   same (B, S, widths):
 
   - attention: the whole block (``ops.attention.attn_block``) where the
-    TPU's resident block fits; else LN + quant (``lnq``) and either the
+    TPU's resident block fits; else the streamed block
+    (``ops.attention.attn_block_stream``, its o input quantized per head
+    group) where the TPU's streamed block fits; else LN + quant (``lnq``)
+    and either the
     int8 route (``attn_i8``: ``gemm_gq`` with ``act="none"``, then
     ``mha_qkv_i8``) or ``w8a8_pre`` + ``qkv_b`` in the compute dtype, then
     attention with an int8 output feeding the o GEMM (``quant_o``) or a
     bf16 output feeding ``ops.linear.qmatmul``; with ``lnq_fuse`` off, LN in
     the compute dtype and ``qmatmul`` for both projections;
   - MLP: the whole block (``ops.actquant.mlp_lnq``) where the TPU's resident
-    weights fit; else ``lnq`` -> ``gemm_gq`` -> the down GEMM with bias and
-    residual; with ``up_gq`` (and ``lnq_fuse`` off) LN, the row quant, then
-    ``mlp_gq`` or ``gemm_gq`` + ``w8a8_pre``; with neither, LN and
-    ``qmatmul`` for both projections.
-
-  Where the JAX package would take one of its two weight-streaming kernels
-  (``attn_block_stream_pallas``, ``mlp_lnq_stream_pallas``), the port raises
-  ``NotImplementedError``: those are not ported.
+    weights fit; else, with ``mlp_stream``, the weight-streamed block
+    (``ops.actquant.mlp_lnq_stream``, ``exact=True``: the whole block's
+    function) where the TPU's streamed block fits; else ``lnq`` ->
+    ``gemm_gq`` -> the down GEMM with bias and residual; with ``up_gq`` (and
+    ``lnq_fuse`` off) LN, the row quant, then ``mlp_gq`` or ``gemm_gq`` +
+    ``w8a8_pre``; with neither, LN and ``qmatmul`` for both projections.
 * ``"dense"``: dense (f16/f32-sourced) layer weights take the JAX package's
   dense route (``transformer.py:232-299, 426-437``): LN -> qkv GEMM + bias
   -> ``ops.attention.mha_qkv`` -> o GEMM + bias -> residual, then LN -> up
@@ -67,14 +68,16 @@ def _ops(kernels: bool):
     """The kernel wrappers, or their plain versions (``kernels=False``)."""
     if kernels:
         return dict(lnq=aq.lnq, gemm_gq=aq.gemm_gq, w8a8_pre=aq.w8a8_pre, mlp_gq=aq.mlp_gq,
-                    mlp_lnq=aq.mlp_lnq, gemm_i8=aq.gemm_i8, attn_block=at.attn_block,
+                    mlp_lnq=aq.mlp_lnq, mlp_lnq_stream=aq.mlp_lnq_stream, gemm_i8=aq.gemm_i8,
+                    attn_block=at.attn_block, attn_block_stream=at.attn_block_stream,
                     attention_heads=at.attention_heads, requant=aq.requant,
                     mha_qkv=at.mha_qkv, mha_qkv_i8=at.mha_qkv_i8)
     return dict(lnq=aq.lnq_plain, gemm_gq=aq.gemm_gq_plain, w8a8_pre=aq.w8a8_pre_plain,
-                mlp_gq=aq.mlp_gq_plain, mlp_lnq=aq.mlp_lnq_plain, gemm_i8=aq.gemm_i8_plain,
-                attn_block=at.attn_block_plain, attention_heads=at.attention_heads_plain,
-                requant=aq.requant_plain, mha_qkv=at.mha_qkv_plain,
-                mha_qkv_i8=at.mha_qkv_i8_plain)
+                mlp_gq=aq.mlp_gq_plain, mlp_lnq=aq.mlp_lnq_plain,
+                mlp_lnq_stream=aq.mlp_lnq_stream_plain, gemm_i8=aq.gemm_i8_plain,
+                attn_block=at.attn_block_plain, attn_block_stream=at.attn_block_stream_plain,
+                attention_heads=at.attention_heads_plain, requant=aq.requant_plain,
+                mha_qkv=at.mha_qkv_plain, mha_qkv_i8=at.mha_qkv_i8_plain)
 
 
 def _o_resid(k, codes, sx, x, lp):
@@ -116,9 +119,10 @@ def _attention_w8a8(x, lp, *, n_head: int, eps: float, causal: bool,
                 and at.attn_block_fusable(h, qkv_width, o_w.shape[0], b, s))
     if (not resident and attn_block and o_w8 and flat and at.attn_block_stream_fusable(
             h, qkv_width, o_w.shape[0], b, s, n_head=n_head_loc)):
-        raise NotImplementedError(
-            "the streamed attention block (attention_pallas.py:648 "
-            "attn_block_stream_pallas) is not ported")
+        return k["attn_block_stream"](x, lp["ln1_w"], lp["ln1_b"], qkv_w.c8, qkv_w.ws,
+                                      lp["qkv_b"], o_w.c8, o_w.ws, lp["o_b"], n_head=n_head_loc,
+                                      scale=scale, eps=eps, causal=causal, valid_len=valid_len,
+                                      residual=True)
     if resident:
         return k["attn_block"](x, lp["ln1_w"], lp["ln1_b"], qkv_w.c8, qkv_w.ws, lp["qkv_b"],
                                o_w.c8, o_w.ws, lp["o_b"], n_head=n_head_loc, scale=scale,
@@ -158,11 +162,11 @@ def _mlp_w8a8(x, lp, *, eps: float, use_gelu: bool, kernels: bool, lnq_fuse: boo
     widths = aq.fusable_width(h) and aq.fusable_width(n)
     fuse_mlp = lnq_fuse and w8 and widths
     full = mlp_full and fuse_mlp and aq.mlp_fusable(h, n)
-    if not full and mlp_full and mlp_stream and fuse_mlp and aq.mlp_stream_fusable(h, n):
-        raise NotImplementedError(
-            "the weight-streamed MLP (actquant_pallas.py:483 mlp_lnq_stream_pallas) is not "
-            "ported")
     x2 = x.reshape(b * s, h)
+    if not full and mlp_full and mlp_stream and fuse_mlp and aq.mlp_stream_fusable(h, n):
+        return k["mlp_lnq_stream"](x2, lp["ln2_w"], lp["ln2_b"], up_w.c8, up_w.ws, lp["up_b"],
+                                   dn_w.c8, dn_w.ws, lp["down_b"], eps=eps, act=act,
+                                   residual=True).reshape(b, s, h)
     if full:
         return k["mlp_lnq"](x2, lp["ln2_w"], lp["ln2_b"], up_w.c8, up_w.ws, lp["up_b"],
                             dn_w.c8, dn_w.ws, lp["down_b"], eps=eps, act=act).reshape(b, s, h)

@@ -40,9 +40,9 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "ctt_lnq": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
-    "ctt_requant": (_P, _P, _P, _I, _I, _P),
-    "ctt_gemm_i8": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
-    "ctt_attention": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "ctt_requant": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ctt_gemm_i8": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "ctt_attention": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ctt_attention_i8": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ctt_qmatmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -9,6 +9,13 @@
   (``mlp_gq_pallas:296``);
 * :func:`w8a8_pre` -- the int8 GEMM over pre-quantized codes with the
   ``bf16(acc*sx*ws)`` rescale (``w8a8_pre:658``, XLA in the JAX package);
+* :func:`actq` -- activation (gelu_quick, gelu_tanh or none) + row int8
+  quant of an f32 or bf16 input (``actq_pallas:119``);
+* :func:`mlp_lnq_stream` -- the weight-streamed MLP block
+  (``mlp_lnq_stream_pallas:483``): ``exact=True`` is :func:`mlp_lnq`'s
+  function, ``exact=False`` requantizes each of ``c`` chunks of 4H with its
+  own row scale and sums the down GEMM's per-chunk partials in f32 (the
+  grouped GEMM epilogue, ``GROUPED``);
 
 and the int8 building blocks they share with the attention block.  It also
 keeps copies of the JAX package's MLP route gates (:func:`fusable_width`,
@@ -32,17 +39,19 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .nn import layernorm_f32, quant_rows
+from .nn import gelu_quick, gelu_tanh, layernorm_f32, quant_rows
 
-__all__ = ["ACC", "BIAS", "BIAS_F32", "GELU_QUICK", "GELU_TANH", "PRE", "RESID",
-           "fusable_width", "gemm_gq", "gemm_gq_plain", "gemm_i8", "gemm_i8_plain", "lnq",
-           "lnq_plain", "mlp_fusable", "mlp_gq", "mlp_gq_plain", "mlp_lnq", "mlp_lnq_plain",
+__all__ = ["ACC", "BIAS", "BIAS_F32", "GELU_QUICK", "GELU_TANH", "GROUPED", "PRE", "RESID",
+           "actq", "actq_plain", "fusable_width", "gemm_gq", "gemm_gq_plain", "gemm_i8",
+           "gemm_i8_plain", "lnq", "lnq_plain", "mlp_fusable", "mlp_gq", "mlp_gq_plain",
+           "mlp_lnq", "mlp_lnq_plain", "mlp_lnq_stream", "mlp_lnq_stream_plain",
            "mlp_stream_fusable", "requant", "requant_plain", "w8a8_pre", "w8a8_pre_plain"]
 
 # epilogue modes of the int8 GEMM (csrc/actquant.cu GemmMode)
-ACC, BIAS, GELU_QUICK, GELU_TANH, RESID, PRE, BIAS_F32 = 0, 1, 2, 3, 4, 5, 6
+ACC, BIAS, GELU_QUICK, GELU_TANH, RESID, PRE, BIAS_F32, GROUPED = 0, 1, 2, 3, 4, 5, 6, 7
 _ACT_MODE = {"gelu_quick": GELU_QUICK, "gelu_tanh": GELU_TANH, "none": BIAS_F32}
-_SQRT_2_OVER_PI = 0.7978845608028654
+# activation prologues of ctt_requant (csrc/actquant.cu Act)
+_ACT_CODE = {"none": 0, "gelu_quick": 1, "gelu_tanh": 2}
 
 
 # -- route gates, copied from the JAX package's ops/actquant_pallas.py -------
@@ -92,8 +101,8 @@ def _mlp_stream_plan(rows: int, k: int, n: int) -> "tuple[int, int] | None":
 
 
 def mlp_stream_fusable(h: int, n4h: int) -> bool:
-    """``actquant_pallas.py:473``: the weight-streamed MLP kernel (row 9,
-    not ported) can run this width."""
+    """``actquant_pallas.py:473``: the weight-streamed MLP kernel (row 9)
+    can run this width."""
     return (fusable_width(h) and fusable_width(n4h)
             and _mlp_stream_plan(8, h, n4h) is not None)
 
@@ -106,12 +115,53 @@ def lnq_plain(x, w, b, eps: float):
     return quant_rows(layernorm_f32(x, w, b, eps))
 
 
-def requant_plain(y):
-    return quant_rows(y)
+def act_f32(y, act: str):
+    """``act`` (gelu_quick, gelu_tanh or none) of ``y`` in float32, in the
+    order of ``actq_pallas``."""
+    fn = {"gelu_quick": gelu_quick, "gelu_tanh": gelu_tanh, "none": lambda v: v}.get(act)
+    if fn is None:
+        raise ValueError(f"unknown act {act!r}")
+    return fn(y.to(torch.float32))
 
 
-def gemm_i8_plain(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16):
-    """``a [M, K] int8 . b [N, K]^T int8`` with the epilogue ``mode``."""
+def requant_plain(y, group: int | None = None):
+    """Row int8 quant of ``y [rows, N]``: (codes ``[rows, N]``, scales
+    ``[rows]``), or with ``group`` each row's ``N / group`` groups of
+    columns quantized with their own scale (scales ``[rows, N / group]``),
+    as ``_quant_heads`` and the streamed MLP's ``_quantize_rows`` per chunk
+    do."""
+    if group is None:
+        return quant_rows(y)
+    rows, n = y.shape
+    codes, sx = quant_rows(y.reshape(rows * (n // group), group))
+    return codes.reshape(rows, n), sx.reshape(rows, n // group)
+
+
+def actq_plain(x, act: str = "gelu_quick"):
+    """``act`` in float32, then row int8 quant: ``x [rows, N]`` f32 or bf16 ->
+    (codes int8 ``[rows, N]``, scales f32 ``[rows]``)."""
+    return quant_rows(act_f32(x, act))
+
+
+def gemm_i8_plain(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16,
+                  group: int | None = None):
+    """``a [M, K] int8 . b [N, K]^T int8`` with the epilogue ``mode``.
+
+    ``GROUPED``: K in groups of ``group`` with row scales ``sx [M, K /
+    group]``; the f32 partials ``acc_g * sx[:, g] * ws`` summed in group
+    order, rounded to ``out_dtype``, then ``+ bias`` and ``resid +`` in that
+    dtype where given (the streamed kernels' emit)."""
+    if mode == GROUPED:
+        y = None
+        for g in range(a.shape[1] // group):
+            cols = slice(g * group, (g + 1) * group)
+            acc = a[:, cols].to(torch.float64) @ b[:, cols].to(torch.float64).T
+            part = acc.to(torch.float32) * sx[:, g, None] * ws[None, :]
+            y = part if y is None else y + part
+        t = y.to(out_dtype)
+        if bias is not None:
+            t = t + bias.to(out_dtype)
+        return t if resid is None else resid.to(out_dtype) + t
     acc = a.to(torch.float64) @ b.to(torch.float64).T
     if mode == ACC:
         return acc.to(torch.int32)
@@ -123,12 +173,9 @@ def gemm_i8_plain(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfl
     if mode == BIAS:
         return (y + bias).to(out_dtype)
     if mode == GELU_QUICK:
-        y = y + bias
-        return y * (0.5 + 0.5 * torch.tanh(0.851 * y))
+        return gelu_quick(y + bias)
     if mode == GELU_TANH:
-        y = y + bias
-        return 0.5 * y * (1.0 + torch.tanh(
-            _SQRT_2_OVER_PI * (y + 0.044715 * y * y * y)))
+        return gelu_tanh(y + bias)
     if mode == RESID:
         t = y.to(out_dtype) + bias.to(out_dtype)
         return resid.to(out_dtype) + t
@@ -167,6 +214,38 @@ def mlp_lnq_plain(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
     return gemm_i8_plain(c2, dn8, s2, dnws, dnb, RESID, resid=x, out_dtype=x.dtype)
 
 
+def _stream_chunks(rows: int, h: int, n: int, exact: bool, n_chunks: int | None) -> int:
+    """Chunks of 4H the streamed MLP requantizes separately: 1 for
+    ``exact``, else ``n_chunks`` or the copied plan's (8 at ViT-H/14)."""
+    plan = _mlp_stream_plan(rows, h, n)
+    if plan is None:
+        raise ValueError(f"mlp_lnq_stream: no chunk plan for {h}x{n}")
+    if exact:
+        return 1
+    c = n_chunks or plan[1]
+    if n % c or (n // c) % 128:
+        raise ValueError(f"n_chunks {c} must 128-align {n}")
+    return c
+
+
+def mlp_lnq_stream_plain(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb=None, *, eps: float,
+                         act: str = "gelu_quick", residual: bool = False, exact: bool = True,
+                         n_chunks: int | None = None):
+    """The weight-streamed MLP over ``x [rows, H]`` in its own dtype: LN ->
+    quant -> up GEMM -> +bias -> act -> requant (full row for ``exact``, per
+    chunk of 4H otherwise) -> down GEMM summed over the chunks -> then
+    ``+ dnb`` and, with ``residual``, ``x +``."""
+    if residual and dnb is None:
+        raise ValueError("residual=True requires dnb")
+    n = up8.shape[0]
+    c = _stream_chunks(x.shape[0], x.shape[1], n, exact, n_chunks)
+    c1, s1 = lnq_plain(x, lnw, lnb, eps)
+    y = gemm_i8_plain(c1, up8, s1, upws, upb, _ACT_MODE[act])
+    c2, s2 = requant_plain(y, group=n // c)
+    return gemm_i8_plain(c2, dn8, s2, dnws, dnb, GROUPED, resid=x if residual else None,
+                         out_dtype=x.dtype, group=n // c)
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 def lnq(x, w, b, eps: float):
@@ -188,34 +267,64 @@ def lnq(x, w, b, eps: float):
     return codes, scales
 
 
-def requant(y):
-    """Row int8 quant of an f32 ``[rows, N]`` (``ctt_requant``), N % 4 == 0."""
-    if y.device.type == "cpu":
-        return requant_plain(y)
+def _row_quant(y, group: int, act: str, name: str):
+    """Launch ``ctt_requant`` over ``y [rows, N]`` (f32 or bf16): ``act``,
+    then int8 codes per group of ``group`` columns; scales ``[rows, N /
+    group]``."""
     rows, n = y.shape
-    _cuda.require(y, "y", torch.float32, (rows, n), y.device)
-    if n % 4:
-        raise ValueError(f"requant: width {n} not a multiple of 4")
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {y.dtype}, expected float32 or bfloat16")
+    _cuda.require(y, "y", y.dtype, (rows, n), y.device)
+    if group % 4 or n % group:
+        raise ValueError(f"{name}: groups of {group} must divide the width {n} and be a "
+                         "multiple of 4")
     codes = torch.empty(rows, n, dtype=torch.int8, device=y.device)
-    scales = torch.empty(rows, dtype=torch.float32, device=y.device)
+    scales = torch.empty(rows, n // group, dtype=torch.float32, device=y.device)
     _cuda.check(_cuda.lib().ctt_requant(
-        y.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, n, _cuda.stream(y)),
-        "ctt_requant")
-    requant.launches += 1
+        y.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, n, group, _ACT_CODE[act],
+        int(y.dtype == torch.bfloat16), _cuda.stream(y)), name)
     return codes, scales
+
+
+def requant(y, group: int | None = None):
+    """:func:`requant_plain` on the card (``ctt_requant``): f32 ``y``, N and
+    ``group`` multiples of 4."""
+    if y.device.type == "cpu":
+        return requant_plain(y, group)
+    _cuda.require(y, "y", torch.float32, tuple(y.shape), y.device)
+    codes, scales = _row_quant(y, y.shape[1] if group is None else group, "none", "requant")
+    requant.launches += 1
+    return codes, scales.reshape(-1) if group is None else scales
+
+
+def actq(x, act: str = "gelu_quick"):
+    """Counterpart of ``actq_pallas``: :func:`actq_plain` on the card
+    (``ctt_requant`` with the activation prologue and the full-row group);
+    ``x [rows, N]`` f32 or bf16, N % 4 == 0."""
+    if act not in _ACT_CODE:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return actq_plain(x, act)
+    codes, scales = _row_quant(x, x.shape[1], act, "actq")
+    actq.launches += 1
+    return codes, scales.reshape(-1)
 
 
 _GEMM_OUT = {ACC: torch.int32, BIAS: torch.bfloat16, GELU_QUICK: torch.float32,
              GELU_TANH: torch.float32, RESID: torch.bfloat16, PRE: torch.bfloat16,
-             BIAS_F32: torch.float32}
+             BIAS_F32: torch.float32, GROUPED: torch.bfloat16}
 
 
-def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16):
+def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16,
+            group: int | None = None):
     """int8 GEMM with epilogue (``ctt_gemm_i8``): ``a [M, K]``, ``b [N, K]``,
     K % 64 == 0, N % 8 == 0.  ``out_dtype`` is the rounding of the BIAS,
-    RESID and PRE epilogues: bfloat16 on a card."""
+    RESID, PRE and GROUPED epilogues: bfloat16 on a card.  ``GROUPED`` takes
+    ``sx [M, K / group]`` with ``group`` a multiple of 64, and an optional
+    bias and residual."""
     if a.device.type == "cpu":
-        return gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid, out_dtype=out_dtype)
+        return gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid, out_dtype=out_dtype,
+                             group=group)
     if mode not in _GEMM_OUT:
         raise ValueError(f"unknown GEMM mode {mode}")
     if _GEMM_OUT[mode] == torch.bfloat16 and out_dtype != torch.bfloat16:
@@ -227,18 +336,25 @@ def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16)
     _cuda.require(b, "b", torch.int8, (n, k), dev)
     if k % 64 or n % 8:
         raise ValueError(f"gemm_i8: K={k} must be a multiple of 64 and N={n} of 8")
-    if mode != ACC:
+    if mode == GROUPED:
+        if group is None or group % 64 or k % group:
+            raise ValueError(f"gemm_i8: groups of {group} must divide K={k} and be a "
+                             "multiple of 64")
+        _cuda.require(sx, "sx", torch.float32, (m, k // group), dev)
+    elif mode != ACC:
         _cuda.require(sx, "sx", torch.float32, (m,), dev)
+    if mode != ACC:
         _cuda.require(ws, "ws", torch.float32, (n,), dev)
-    if mode not in (ACC, PRE):
+    if mode not in (ACC, PRE) and (mode != GROUPED or bias is not None):
         _cuda.require(bias, "bias", torch.float32, (n,), dev)
-    if mode == RESID:
+    if mode == RESID or (mode == GROUPED and resid is not None):
         _cuda.require(resid, "resid", torch.bfloat16, (m, n), dev)
     out = torch.empty(m, n, dtype=_GEMM_OUT[mode], device=dev)
     _cuda.check(_cuda.lib().ctt_gemm_i8(
-        a.data_ptr(), b.data_ptr(), m, n, k, _cuda.ptr(sx), _cuda.ptr(ws), _cuda.ptr(bias),
-        _cuda.ptr(resid) if mode == RESID else None, out.data_ptr(), mode,
-        _cuda.stream(a)), "ctt_gemm_i8")
+        a.data_ptr(), b.data_ptr(), m, n, k, _cuda.ptr(sx), _cuda.ptr(ws),
+        _cuda.ptr(bias) if mode not in (ACC, PRE) else None,
+        _cuda.ptr(resid) if mode in (RESID, GROUPED) else None, out.data_ptr(), mode,
+        group or k, _cuda.stream(a)), "ctt_gemm_i8")
     gemm_i8.launches += 1
     return out
 
@@ -262,6 +378,47 @@ def mlp_lnq(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
     c2, s2 = requant(y)
     out = gemm_i8(c2, dn8, s2, dnws, dnb, RESID, resid=x)
     mlp_lnq.launches += 1
+    return out
+
+
+def mlp_lnq_stream(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb=None, *, eps: float,
+                   act: str = "gelu_quick", residual: bool = False, exact: bool = True,
+                   n_chunks: int | None = None):
+    """Counterpart of ``mlp_lnq_stream_pallas``: :func:`mlp_lnq_stream_plain`
+    on the card.  ``ctt_lnq`` -> up ``ctt_gemm_i8`` (bias + act, f32 out) ->
+    ``ctt_requant`` over the full row (``exact``) or per chunk of 4H / c ->
+    down ``ctt_gemm_i8`` with the grouped epilogue.  One chunk with the
+    residual is :func:`mlp_lnq`'s chain, so it ends in that residual
+    epilogue, which the grouped one equals bit for bit with one group but
+    with half the registers.
+
+    The TPU kernel streams the weight columns through VMEM in chunks; here
+    every GEMM streams its weights from device memory anyway, so only the
+    per-chunk numerics of ``exact=False`` need a kernel of their own (the
+    grouped requant and epilogue)."""
+    if act not in _ACT_MODE:
+        raise ValueError(f"unknown act {act!r}")
+    if x.device.type == "cpu":
+        return mlp_lnq_stream_plain(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, eps=eps,
+                                    act=act, residual=residual, exact=exact,
+                                    n_chunks=n_chunks)
+    if residual and dnb is None:
+        raise ValueError("residual=True requires dnb")
+    rows, h = x.shape
+    n = up8.shape[0]
+    _cuda.require(up8, "up8", torch.int8, (n, h), x.device)
+    _cuda.require(dn8, "dn8", torch.int8, (h, n), x.device)
+    c = _stream_chunks(rows, h, n, exact, n_chunks)
+    c1, s1 = lnq(x, lnw, lnb, eps)
+    y = gemm_i8(c1, up8, s1, upws, upb, _ACT_MODE[act])
+    if c == 1 and residual:
+        c2, s2 = requant(y)
+        out = gemm_i8(c2, dn8, s2, dnws, dnb, RESID, resid=x)
+    else:
+        c2, s2 = requant(y, group=n // c)
+        out = gemm_i8(c2, dn8, s2, dnws, dnb, GROUPED, resid=x if residual else None,
+                      group=n // c)
+    mlp_lnq_stream.launches += 1
     return out
 
 
@@ -315,5 +472,5 @@ def mlp_gq(codes, sx, up8, upws, upb, dn8, dnws, *, act: str = "gelu_quick",
     return out
 
 
-for _fn in (lnq, requant, gemm_i8, mlp_lnq, w8a8_pre, gemm_gq, mlp_gq):
+for _fn in (lnq, requant, actq, gemm_i8, mlp_lnq, mlp_lnq_stream, w8a8_pre, gemm_gq, mlp_gq):
     _fn.launches = 0

@@ -24,10 +24,28 @@ to the compute dtype, as ``mha_pallas_qkv`` writes it; the TPU kernel's
 mha_pallas_qkv_i8``) is attention over an int8 qkv projection with per-row
 scales: the q.k dot exact in integers, V dequantized to bf16 per row.
 
+The rest of the JAX package's attention kernels:
+
+* :func:`attn_block_stream` (``attention_pallas.py:648
+  attn_block_stream_pallas``): row 1's chain with the o GEMM's input
+  quantized per head group of ``hg`` heads (``ops.actquant.requant`` with
+  ``group``) and the o GEMM summed over the groups in f32 (the ``GROUPED``
+  epilogue of ``ctt_gemm_i8``);
+* :func:`mha` (``attention_pallas.py:1119 mha_pallas``): attention over
+  separate q, k, v in bf16 or f32, output in their dtype
+  (``ctt_attention`` with three base pointers);
+* :func:`layer_block` (``attention_pallas.py:877 layer_block_pallas``): one
+  whole layer, :func:`attn_block` then ``ops.actquant.mlp_lnq``.  No kernel
+  of its own: an SM's 227 KB cannot hold one layer's int8 weights, and the
+  JAX package found its one-call layer slower than the two blocks and
+  bit-equal to them on the chip.
+
 The module also keeps copies of the JAX package's attention route gates
 (:func:`flat_eligible`, :func:`attn_block_fusable`,
-:func:`attn_block_stream_fusable`).  They are TPU VMEM budgets, copied only
-so that the port takes the reference's route for a geometry, which fixes
+:func:`attn_block_stream_fusable`, :func:`layer_block_fusable`) and the
+streamed block's plan (:func:`_ablk_stream_plan`).  They are TPU VMEM
+budgets, copied only so that the port takes the reference's route for a
+geometry, and the head group ``hg`` the reference quantizes by, which fix
 the function computed; no CUDA launch decision depends on them.
 """
 
@@ -36,12 +54,14 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .actquant import (BIAS, RESID, gemm_i8, gemm_i8_plain, lnq, lnq_plain,
-                       requant, requant_plain)
+from .actquant import (BIAS, GROUPED, RESID, gemm_i8, gemm_i8_plain, lnq, lnq_plain, mlp_lnq,
+                       mlp_lnq_plain, requant, requant_plain)
 
 __all__ = ["NEG_INF", "attention_heads", "attention_heads_plain", "attn_block",
-           "attn_block_fusable", "attn_block_plain", "attn_block_stream_fusable",
-           "flat_eligible", "mha_qkv", "mha_qkv_i8", "mha_qkv_i8_plain", "mha_qkv_plain"]
+           "attn_block_fusable", "attn_block_plain", "attn_block_stream",
+           "attn_block_stream_fusable", "attn_block_stream_plain", "flat_eligible",
+           "layer_block", "layer_block_fusable", "layer_block_plain", "mha", "mha_plain",
+           "mha_qkv", "mha_qkv_i8", "mha_qkv_i8_plain", "mha_qkv_plain"]
 
 NEG_INF = -1e9
 _SM_BOUND = 80.0
@@ -126,8 +146,7 @@ def _ablk_stream_plan(rt: int, h: int, qkv_width: int, o_out: int,
 
 def attn_block_stream_fusable(h: int, qkv_width: int, o_out: int, b: int = 8, s: int = 8,
                               n_head: int | None = None) -> bool:
-    """``attention_pallas.py:631``: the streamed attention block (row 8, not
-    ported)."""
+    """``attention_pallas.py:631``: the streamed attention block (row 8)."""
     h_loc = qkv_width // 3
     if h % 128 != 0 or h_loc % 128 != 0:
         return False
@@ -137,6 +156,26 @@ def attn_block_stream_fusable(h: int, qkv_width: int, o_out: int, b: int = 8, s:
     if bb is None:
         return False
     return _ablk_stream_plan(bb * s, h, qkv_width, o_out, h_loc // n_head) is not None
+
+
+_LAYER_BUDGET = 26 * 1024 * 1024
+
+
+def _layer_resid(rt: int, h: int, qkv_width: int, o_out: int, n4h: int) -> int:
+    """``attention_pallas.py:839``."""
+    return _ablk_resid(rt, h, qkv_width, o_out) + 2 * n4h * h + rt * 10 * n4h
+
+
+def layer_block_fusable(h: int, qkv_width: int, o_out: int, n4h: int, b: int = 8,
+                        s: int = 8) -> bool:
+    """``attention_pallas.py:845``: the whole-layer kernel (row 12) takes
+    this geometry."""
+    if not attn_block_fusable(h, qkv_width, o_out, b, s):
+        return False
+    if o_out != h or qkv_width != 3 * h:
+        return False
+    bb = _flat_block_b(b, s, qkv_width)
+    return _layer_resid(bb * s, h, qkv_width, o_out, n4h) <= _LAYER_BUDGET
 
 
 def _mask(s: int, causal: bool, valid_len: int, device) -> torch.Tensor:
@@ -170,34 +209,56 @@ _ATTN_WARPS = 4
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on Hopper
 
 
-def attention_smem(s: int, dh: int) -> int:
+def attention_smem(s: int, dh: int, itemsize: int = 2) -> int:
     """Bytes of shared memory ``ctt_attention`` takes at sequence length
-    ``s`` and head width ``dh``: K and V rows of ``dh + 2`` bf16, and one f32
-    p row and one f32 query row per warp (``csrc/attention.cu``)."""
-    return 2 * s * (dh + 2) * 2 + _ATTN_WARPS * (s + dh) * 4
+    ``s`` and head width ``dh``: K and V rows of ``dh + 2`` elements of the
+    input (``itemsize`` bytes each), and one f32 p row and one f32 query row
+    per warp (``csrc/attention.cu``)."""
+    return 2 * s * (dh + 2) * itemsize + _ATTN_WARPS * (s + dh) * 4
 
 
-def _attention(qkv, b: int, s: int, n_head: int, scale: float, causal: bool,
-               valid_len: int | None, out_dtype: torch.dtype, name: str):
-    """Launch ``ctt_attention`` over ``qkv [B*S, 3*Hl]`` bf16 -> ``[B*S, Hl]``
-    in ``out_dtype`` (float32 or bfloat16)."""
-    h3 = qkv.shape[-1]
-    hl = h3 // 3
-    dh = hl // n_head
-    _cuda.require(qkv, "qkv", torch.bfloat16, (b * s, h3), qkv.device)
-    if h3 % 3 or hl % n_head or dh % 2:
-        raise ValueError(f"{name}: width {h3} does not split into 3 x {n_head} even heads")
+# ctt_attention's io codes: (input dtype, output dtype)
+_ATTN_IO = {(torch.bfloat16, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+            (torch.float32, torch.float32): 2}
+
+
+def _attention(q, k_ptr: int, v_ptr: int, ld: int, b: int, s: int, n_head: int, dh: int,
+               scale: float, causal: bool, valid_len: int | None, out_dtype: torch.dtype,
+               name: str):
+    """Launch ``ctt_attention`` over rows of ``ld`` elements starting at
+    ``q``'s data and the K and V pointers (of ``q``'s dtype, on its device)
+    -> ``[B*S, n_head*dh]`` in ``out_dtype``."""
+    io = _ATTN_IO.get((q.dtype, out_dtype))
+    if io is None:
+        raise TypeError(f"{name}: {q.dtype} in, {out_dtype} out is not a form of the kernel")
+    if dh % 2 or ld % 2:
+        raise ValueError(f"{name}: d_head {dh} and row stride {ld} must be even")
     vl = s if valid_len is None else valid_len
     if not 1 <= vl <= s:
         raise ValueError(f"{name}: valid_len {vl} outside [1, {s}]")
-    if attention_smem(s, dh) > SMEM_LIMIT:
-        raise ValueError(f"{name}: S = {s}, d_head = {dh} needs {attention_smem(s, dh)} B of "
-                         f"shared memory, more than the {SMEM_LIMIT} B a block may have")
-    out = torch.empty(b * s, hl, dtype=out_dtype, device=qkv.device)
+    smem = attention_smem(s, dh, q.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: S = {s}, d_head = {dh} needs {smem} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block may have")
+    out = torch.empty(b * s, n_head * dh, dtype=out_dtype, device=q.device)
     _cuda.check(_cuda.lib().ctt_attention(
-        qkv.data_ptr(), out.data_ptr(), b, s, n_head, dh, float(scale), int(causal), vl,
-        int(out_dtype == torch.bfloat16), _cuda.stream(qkv)), name)
+        q.data_ptr(), k_ptr, v_ptr, ld, out.data_ptr(), b, s, n_head, dh, float(scale), int(causal), vl, io,
+        _cuda.stream(q)), name)
     return out
+
+
+def _attention_qkv(qkv, b: int, s: int, n_head: int, scale: float, causal: bool,
+                   valid_len: int | None, out_dtype: torch.dtype, name: str):
+    """``ctt_attention`` over the packed ``qkv [B*S, 3*Hl]`` bf16 -> ``[B*S,
+    Hl]`` in ``out_dtype`` (float32 or bfloat16)."""
+    h3 = qkv.shape[-1]
+    hl = h3 // 3
+    _cuda.require(qkv, "qkv", torch.bfloat16, (b * s, h3), qkv.device)
+    if h3 % 3 or hl % n_head:
+        raise ValueError(f"{name}: width {h3} does not split into 3 x {n_head} heads")
+    base, step = qkv.data_ptr(), hl * qkv.element_size()
+    return _attention(qkv, base + step, base + 2 * step, h3, b, s, n_head, hl // n_head, scale,
+                      causal, valid_len, out_dtype, name)
 
 
 def attention_heads(qkv, b: int, s: int, n_head: int, scale: float,
@@ -205,8 +266,8 @@ def attention_heads(qkv, b: int, s: int, n_head: int, scale: float,
     """:func:`attention_heads_plain` on the card (``ctt_attention``, f32 out)."""
     if qkv.device.type == "cpu":
         return attention_heads_plain(qkv, b, s, n_head, scale, causal, valid_len)
-    out = _attention(qkv, b, s, n_head, scale, causal, valid_len, torch.float32,
-                     "attention_heads")
+    out = _attention_qkv(qkv, b, s, n_head, scale, causal, valid_len, torch.float32,
+                         "attention_heads")
     attention_heads.launches += 1
     return out
 
@@ -230,8 +291,8 @@ def mha_qkv(qkv, *, n_head: int, scale: float, causal: bool = False,
         return mha_qkv_plain(qkv, n_head=n_head, scale=scale, causal=causal,
                              valid_len=valid_len)
     b, s, h3 = qkv.shape
-    out = _attention(qkv.reshape(b * s, h3), b, s, n_head, scale, causal, valid_len,
-                     torch.bfloat16, "mha_qkv")
+    out = _attention_qkv(qkv.reshape(b * s, h3), b, s, n_head, scale, causal, valid_len,
+                         torch.bfloat16, "mha_qkv")
     mha_qkv.launches += 1
     return out.reshape(b, s, h3 // 3)
 
@@ -359,5 +420,144 @@ def attn_block(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob, *, n_head: int,
     return out.reshape(b, s, h)
 
 
-for _fn in (attention_heads, attn_block, mha_qkv, mha_qkv_i8):
+def stream_heads(b: int, s: int, h: int, h3: int, h_out: int, n_head: int,
+                 hg: int | None = None) -> int:
+    """Heads per group whose attention output the streamed block quantizes
+    together: ``hg`` or the copied plan's (``_ablk_stream_plan`` at the flat
+    kernel's row block, as ``attn_block_stream_pallas`` takes it)."""
+    bb = _flat_block_b(b, s, h3)
+    if bb is None:
+        raise ValueError("attn_block_stream requires the flat path: gate on flat_eligible")
+    dh = h3 // 3 // n_head
+    plan = _ablk_stream_plan(bb * s, h, h3, h_out, dh)
+    if plan is None:
+        raise ValueError(f"no stream plan for rt={bb * s} h={h} h3={h3}")
+    hg = hg or plan[1]
+    if n_head % hg or (hg * dh) % 128:
+        raise ValueError(f"bad head group hg={hg}")
+    return hg
+
+
+def attn_block_stream_plain(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob=None, *, n_head: int,
+                            scale: float, eps: float, causal: bool = False,
+                            valid_len: int | None = None, residual: bool = False,
+                            hg: int | None = None):
+    """Row 1's chain over ``x [B, S, H]`` with the attention output
+    requantized per head group (``hg * d_head`` columns) and the o GEMM
+    summed over the groups in f32; then ``bf16(acc)``, ``+ ob`` and, with
+    ``residual``, ``x +`` in the dtype of ``x``.  Without ``ob`` the output
+    is pre-bias."""
+    b, s, h = x.shape
+    h3, h_out = qw8.shape[0], ow8.shape[0]
+    if residual and (ob is None or h_out != h):
+        raise ValueError("residual=True requires ob and H_out == H")
+    g = stream_heads(b, s, h, h3, h_out, n_head, hg) * (h3 // 3 // n_head)
+    x2 = x.reshape(b * s, h)
+    c1, s1 = lnq_plain(x2, lnw, lnb, eps)
+    qkv = gemm_i8_plain(c1, qw8, s1, qws, qb, BIAS, out_dtype=x.dtype)
+    att = attention_heads_plain(qkv, b, s, n_head, scale, causal, valid_len)
+    c2, s2 = requant_plain(att, group=g)
+    out = gemm_i8_plain(c2, ow8, s2, ows, ob, GROUPED, resid=x2 if residual else None,
+                        out_dtype=x.dtype, group=g)
+    return out.reshape(b, s, h_out)
+
+
+def attn_block_stream(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob=None, *, n_head: int,
+                      scale: float, eps: float, causal: bool = False,
+                      valid_len: int | None = None, residual: bool = False,
+                      hg: int | None = None):
+    """Counterpart of ``attn_block_stream_pallas``: :func:`attn_block_stream_plain`
+    on the card.  ``ctt_lnq`` -> qkv ``ctt_gemm_i8`` (bias, bf16) ->
+    ``ctt_attention`` (f32) -> ``ctt_requant`` per head group -> o
+    ``ctt_gemm_i8`` with the grouped epilogue.
+
+    The TPU kernel streams the qkv weight in ``cq`` column chunks and the o
+    weight in head-group chunks through VMEM, which does not change a value;
+    its head-group quantization does, and is kept."""
+    if x.device.type == "cpu":
+        return attn_block_stream_plain(x, lnw, lnb, qw8, qws, qb, ow8, ows, ob, n_head=n_head,
+                                       scale=scale, eps=eps, causal=causal,
+                                       valid_len=valid_len, residual=residual, hg=hg)
+    b, s, h = x.shape
+    h3, h_out = qw8.shape[0], ow8.shape[0]
+    if residual and (ob is None or h_out != h):
+        raise ValueError("residual=True requires ob and H_out == H")
+    _cuda.require(qw8, "qw8", torch.int8, (h3, h), x.device)
+    _cuda.require(ow8, "ow8", torch.int8, (h_out, h3 // 3), x.device)
+    g = stream_heads(b, s, h, h3, h_out, n_head, hg) * (h3 // 3 // n_head)
+    x2 = x.reshape(b * s, h)
+    c1, s1 = lnq(x2, lnw, lnb, eps)
+    qkv = gemm_i8(c1, qw8, s1, qws, qb, BIAS)
+    att = attention_heads(qkv, b, s, n_head, scale, causal, valid_len)
+    c2, s2 = requant(att, group=g)
+    out = gemm_i8(c2, ow8, s2, ows, ob, GROUPED, resid=x2 if residual else None, group=g)
+    attn_block_stream.launches += 1
+    return out.reshape(b, s, h_out)
+
+
+def mha_plain(q, k, v, *, n_head: int, scale: float, causal: bool = False):
+    """Multi-head attention over separate ``q, k, v [B, S, H]`` -> ``[B, S,
+    H]`` in their dtype, in the order of ``mha_pallas``: q * scale in that
+    dtype, f32 scores, the clipped softmax, p rounded to that dtype, f32 p.V
+    rounded to it."""
+    b, s, h = q.shape
+    qkv = torch.cat([q, k, v], dim=-1).reshape(b * s, 3 * h)
+    out = attention_heads_plain(qkv, b, s, n_head, scale, causal)
+    return out.to(q.dtype).reshape(b, s, h)
+
+
+def mha(q, k, v, *, n_head: int, scale: float, causal: bool = False):
+    """Counterpart of ``mha_pallas``: :func:`mha_plain` on the card
+    (``ctt_attention`` over three base pointers with row stride H); bf16 or
+    f32 in, the same dtype out."""
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v, n_head=n_head, scale=scale, causal=causal)
+    b, s, h = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"mha: dtype {q.dtype}, expected bfloat16 or float32")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _cuda.require(t, name, q.dtype, (b, s, h), q.device)
+    if h % n_head:
+        raise ValueError(f"mha: width {h} does not split into {n_head} heads")
+    out = _attention(q, k.data_ptr(), v.data_ptr(), h, b, s, n_head, h // n_head, scale,
+                     causal, None, q.dtype, "mha")
+    mha.launches += 1
+    return out.reshape(b, s, h)
+
+
+def layer_block_plain(x, l1w, l1b, qw8, qws, qb, ow8, ows, ob, l2w, l2b, up8, upws, upb,
+                      dn8, dnws, dnb, *, n_head: int, scale: float, eps: float,
+                      act: str = "gelu_quick", causal: bool = False,
+                      valid_len: int | None = None):
+    """One whole layer over ``x [B, S, H]``: :func:`attn_block_plain` (bias
+    and residual) then ``mlp_lnq_plain`` (bias and residual)."""
+    b, s, h = x.shape
+    xm = attn_block_plain(x, l1w, l1b, qw8, qws, qb, ow8, ows, ob, n_head=n_head, scale=scale,
+                          eps=eps, causal=causal, valid_len=valid_len)
+    out = mlp_lnq_plain(xm.reshape(b * s, h), l2w, l2b, up8, upws, upb, dn8, dnws, dnb,
+                        eps=eps, act=act)
+    return out.reshape(b, s, h)
+
+
+def layer_block(x, l1w, l1b, qw8, qws, qb, ow8, ows, ob, l2w, l2b, up8, upws, upb, dn8, dnws,
+                dnb, *, n_head: int, scale: float, eps: float, act: str = "gelu_quick",
+                causal: bool = False, valid_len: int | None = None):
+    """Counterpart of ``layer_block_pallas``: :func:`layer_block_plain` on
+    the card, as :func:`attn_block` then ``mlp_lnq`` (the JAX package calls
+    its one-call layer bit-equal on the chip to that two-block chain)."""
+    if x.device.type == "cpu":
+        return layer_block_plain(x, l1w, l1b, qw8, qws, qb, ow8, ows, ob, l2w, l2b, up8, upws,
+                                 upb, dn8, dnws, dnb, n_head=n_head, scale=scale, eps=eps,
+                                 act=act, causal=causal, valid_len=valid_len)
+    b, s, h = x.shape
+    xm = attn_block(x, l1w, l1b, qw8, qws, qb, ow8, ows, ob, n_head=n_head, scale=scale,
+                    eps=eps, causal=causal, valid_len=valid_len)
+    out = mlp_lnq(xm.reshape(b * s, h), l2w, l2b, up8, upws, upb, dn8, dnws, dnb, eps=eps,
+                  act=act)
+    layer_block.launches += 1
+    return out.reshape(b, s, h)
+
+
+for _fn in (attention_heads, attn_block, attn_block_stream, layer_block, mha, mha_qkv,
+            mha_qkv_i8):
     _fn.launches = 0

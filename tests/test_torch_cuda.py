@@ -416,3 +416,142 @@ def test_engine_up_gq_matches_plain(card, tmp_path, monkeypatch):
     b_img, b_txt = ref.encode_image(imgs), ref.encode_text(["a photo of a cat", "dog"])
     assert (a_img * b_img).sum(1).min() > 0.999
     assert (a_txt * b_txt).sum(1).min() > 0.999
+
+
+# -- the streamed routes' kernels and the last three TPU kernels --------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "gelu_quick", "gelu_tanh"])
+def test_actq_matches_plain(card, act, dtype):
+    y = torch.from_numpy(np.random.default_rng(22).normal(0, 2, (45, 516)).astype(np.float32))
+    y = y.to(card).to(dtype)
+    codes, sx = aq.actq(y, act)
+    pc, psx = aq.actq_plain(y, act)
+    assert sx.shape == (45,)
+    torch.testing.assert_close(sx, psx, rtol=1e-6, atol=0)
+    assert int((codes.int() - pc.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("group", [4, 128, 512])
+def test_requant_groups_match_plain(card, group):
+    y = torch.from_numpy(np.random.default_rng(23).normal(0, 2, (37, 1024)).astype(np.float32))
+    codes, sx = aq.requant(y.to(card), group=group)
+    pc, psx = aq.requant_plain(y.to(card), group=group)
+    assert sx.shape == (37, 1024 // group)
+    torch.testing.assert_close(sx, psx, rtol=1e-6, atol=0)
+    assert int((codes.int() - pc.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("epilogue", ["pre_bias", "bias", "residual"])
+def test_gemm_i8_grouped_exact(card, group, epilogue):
+    """The grouped epilogue equals its plain version bit for bit, with one
+    group the residual epilogue too; M and N fill no tile."""
+    rng = np.random.default_rng(24)
+    m, k, n = 133, 256, 136
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(card)
+    b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(card)
+    sx = torch.from_numpy(rng.uniform(0.005, 0.02, (m, k // group)).astype(np.float32)).to(card)
+    ws, bias = _vec(rng, n, card, 0.01, 0.001), _vec(rng, n, card)
+    bias = None if epilogue == "pre_bias" else bias
+    resid = _x(rng, (m, n), card) if epilogue == "residual" else None
+    got = aq.gemm_i8(a, b, sx, ws, bias, aq.GROUPED, resid=resid, group=group)
+    assert torch.equal(got, aq.gemm_i8_plain(a, b, sx, ws, bias, aq.GROUPED, resid=resid,
+                                             group=group))
+    if epilogue == "residual":
+        one = aq.gemm_i8(a, b, sx[:, :1].contiguous(), ws, bias, aq.GROUPED, resid=resid, group=k)
+        assert torch.equal(one, aq.gemm_i8(a, b, sx[:, 0].contiguous(), ws, bias, aq.RESID,
+                                           resid=resid))
+
+
+@pytest.mark.parametrize("mode", ["plain", "causal", "valid_len"])
+def test_attn_block_stream_matches_plain(card, mode):
+    """Row 8 at h 256, 4 heads in groups of 2, B 3, S 16; with one group it
+    is the resident block's chain bit for bit."""
+    rng = np.random.default_rng(25)
+    b, s, h, nh = 3, 16, 256, 4
+    qw8, qws = _w8(rng, 3 * h, h, card)
+    ow8, ows = _w8(rng, h, h, card)
+    args = (_x(rng, (b, s, h), card), _vec(rng, h, card, 1.0, 0.1), _vec(rng, h, card),
+            qw8, qws, _vec(rng, 3 * h, card), ow8, ows, _vec(rng, h, card))
+    kw = dict(n_head=nh, scale=1.0 / (h // nh) ** 0.5, eps=1e-5, causal=mode == "causal",
+              valid_len=11 if mode == "valid_len" else None)
+    out = at.attn_block_stream(*args, residual=True, hg=2, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, h)
+    assert _cos(out, at.attn_block_stream_plain(*args, residual=True, hg=2, **kw)) > 0.999
+    pre = at.attn_block_stream(*args[:-1], hg=2, **kw)
+    assert _cos(pre, at.attn_block_stream_plain(*args[:-1], hg=2, **kw)) > 0.999
+    assert torch.equal(at.attn_block_stream(*args, residual=True, hg=nh, **kw),
+                       at.attn_block(*args, **kw))
+
+
+@pytest.mark.parametrize("chunks", [None, 1, 4])
+def test_mlp_lnq_stream_matches_plain(card, chunks):
+    """Row 9 over 77 rows at h 128, f 512: ``exact=True`` and one chunk are
+    the resident block bit for bit; four chunks against the plain version."""
+    rng = np.random.default_rng(26)
+    h, f = 128, 512
+    up8, upws = _w8(rng, f, h, card)
+    dn8, dnws = _w8(rng, h, f, card)
+    args = (_x(rng, (77, h), card), _vec(rng, h, card, 1.0, 0.1), _vec(rng, h, card),
+            up8, upws, _vec(rng, f, card), dn8, dnws, _vec(rng, h, card))
+    kw = dict(eps=1e-5, residual=True, exact=chunks is None, n_chunks=chunks)
+    out = aq.mlp_lnq_stream(*args, **kw)
+    if chunks in (None, 1):
+        assert torch.equal(out, aq.mlp_lnq(*args, eps=1e-5))
+    assert _cos(out, aq.mlp_lnq_stream_plain(*args, **kw)) > 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_matches_plain(card, dtype, causal):
+    rng = np.random.default_rng(27)
+    q, k, v = (_x(rng, (3, 13, 128), card).to(dtype) for _ in range(3))
+    kw = dict(n_head=2, scale=0.125, causal=causal)
+    out = at.mha(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == (3, 13, 128)
+    want = at.mha_plain(q, k, v, **kw)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-3)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+def test_layer_block_is_the_two_blocks(card):
+    rng = np.random.default_rng(28)
+    b, s, h, f, nh = 3, 8, 128, 512, 2
+    qw8, qws = _w8(rng, 3 * h, h, card)
+    ow8, ows = _w8(rng, h, h, card)
+    up8, upws = _w8(rng, f, h, card)
+    dn8, dnws = _w8(rng, h, f, card)
+    x = _x(rng, (b, s, h), card)
+    attn = (_vec(rng, h, card, 1.0, 0.1), _vec(rng, h, card), qw8, qws, _vec(rng, 3 * h, card),
+            ow8, ows, _vec(rng, h, card))
+    mlp = (_vec(rng, h, card, 1.0, 0.1), _vec(rng, h, card), up8, upws, _vec(rng, f, card),
+           dn8, dnws, _vec(rng, h, card))
+    kw = dict(n_head=nh, scale=0.125, eps=1e-5, causal=True)
+    out = at.layer_block(x, *attn, *mlp, **kw)
+    xm = at.attn_block(x, *attn, **kw).reshape(b * s, h)
+    assert torch.equal(out, aq.mlp_lnq(xm, *mlp, eps=1e-5).reshape(b, s, h))
+    assert _cos(out, at.layer_block_plain(x, *attn, *mlp, **kw)) > 0.999
+
+
+@pytest.mark.parametrize("row", ["attn_block_stream", "mlp_lnq_stream"])
+def test_stream_routes_match_plain(card, row):
+    """The streamed routes through ``transformer.block``: width 768 at
+    S = 584 (valid 577), and width 1280 with ``mlp_stream=True``."""
+    from clip_tpu_torch import ops
+    from clip_tpu_torch.models import transformer
+
+    rng = np.random.default_rng(29)
+    if row == "attn_block_stream":
+        h, s, flags, vl = 768, 584, {}, 577
+    else:
+        h, s, flags, vl = 1280, 24, dict(mlp_stream=True), None
+    lp = _w8_layer(rng, h, 4 * h, card)
+    x = _x(rng, (1, s, h), card)
+    kw = dict(n_head=h // 64, eps=1e-5, use_gelu=False, valid_len=vl, **flags)
+    ops.reset_launches()
+    out = transformer.block(x, lp, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()[row] == 1
+    ref = transformer.block(x.float(), lp, kernels=False, **kw)
+    assert out.dtype == torch.bfloat16 and _cos(out, ref) > 0.999

@@ -173,19 +173,27 @@ def _zero_w8_layer(h: int, f: int) -> dict:
 
 
 @pytest.mark.parametrize("row", ["attn_block_stream", "mlp_lnq_stream"])
-def test_other_routes_raise(row):
+def test_other_routes_raise(row, monkeypatch):
     """The two W8A8 routes whose TPU kernels stream their weights (rows 8
-    and 9 of the kernel table) are not ported: where the JAX package would
-    take them, the port raises.  Row 8 is reached at width 768 and S = 584
-    (no catalog model runs it); row 9 by ``mlp_stream=True`` at ViT-H/14's
+    and 9 of the kernel table), which the port once refused, now run: where
+    the JAX package takes them, the port calls its streaming wrapper and
+    returns finite output.  Row 8 is reached at width 768 and S = 584 (a
+    ViT-B/16 tower at 384 px); row 9 by ``mlp_stream=True`` at ViT-H/14's
     MLP widths."""
+    from clip_tpu_torch.ops import actquant, attention
+
     if row == "attn_block_stream":
-        h, f, s, flags = 768, 3072, 584, {}
+        h, f, s, flags, mod = 768, 3072, 584, {}, attention
     else:
-        h, f, s, flags = 1280, 5120, 8, dict(mlp_stream=True)
-    with pytest.raises(NotImplementedError, match=row):
-        transformer.block(torch.zeros(1, s, h), _zero_w8_layer(h, f), n_head=h // 64,
-                          eps=1e-5, use_gelu=False, **flags)
+        h, f, s, flags, mod = 1280, 5120, 8, dict(mlp_stream=True), actquant
+    calls = []
+    fn = getattr(mod, row)
+    monkeypatch.setattr(mod, row, lambda *a, **k: calls.append(row) or fn(*a, **k))
+    x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (1, s, h)).astype(np.float32))
+    out = transformer.block(x, _zero_w8_layer(h, f), n_head=h // 64, eps=1e-5, use_gelu=False,
+                            **flags)
+    assert calls == [row]
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
 def test_dense_layer_weights_take_the_dense_route(engines):
