@@ -6,8 +6,12 @@
 Phases, each printing one flushed line with its wall seconds:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the kernels of ``clip_tpu_torch/csrc`` in one ``nvcc`` call, with
-   the ``-Xptxas -v`` register and spill summary.  Meanwhile a pool of
+2. build: the kernels of ``clip_tpu_torch/csrc``, one ``nvcc`` process per
+   source side by side and one link, with the ``-Xptxas -v`` register and
+   spill summary, and the tensor-core instructions of the two tiled
+   attention kernels counted (HMMA and IMMA in ``cuobjdump -sass`` of the
+   library, or ``mma.sync`` in ``nvcc -ptx`` of ``attention.cu`` where the
+   toolkit has no ``cuobjdump``; each must be > 0).  Meanwhile a pool of
    worker processes writes the seeded random checkpoints of the path
    phases into a temporary directory, and the profiler sets up its device
    tracing;
@@ -67,8 +71,12 @@ Phases, each printing one flushed line with its wall seconds:
    route gates) against the staged route in plain float32 (reported);
 9. timing (reported, not gated): each kernel, its plain version, one
    PyTorch library call where one computes the same function (SDPA on the
+   same q, k, v beside ``mha_qkv`` at every shape of phase 3; on the
    dequantized q, k, v beside ``mha_qkv_i8``: the nearest call, not the
-   same function), the q4_0 and f16 ViT-B/32 vision towers at B = 256, the
+   same function), with the bounds of the attention shapes, the attention
+   core alone (``attention_heads``, f32 out) at ViT-B/16-384 [1 and 8,
+   584 valid 577, 12 x 64] against SDPA (its cos against the plain version
+   > 0.9999 is checked), the q4_0 and f16 ViT-B/32 vision towers at B = 256, the
    ViT-H/14 cut tower at B = 64 and the ViT-L/14-336 cut tower at B = 1 and
    4, each whole and per layer; then (stream_timing) the last five kernels
    and their plain versions at the shapes checked, SDPA on the same q, k, v
@@ -203,12 +211,89 @@ def profile_kernels(fn) -> dict:
             "device_ms_by_kernel": top}
 
 
+# kernel families of csrc/attention.cu that must run on the tensor cores
+TC_KERNELS = {"attention_tc_kernel": ("HMMA",), "attention_i8_tc_kernel": ("IMMA", "HMMA")}
+
+
+def tensor_core_counts() -> dict:
+    """Tensor-core instructions in the two tiled attention kernels: HMMA and
+    IMMA in ``cuobjdump -sass`` of the built library where the toolkit has
+    ``cuobjdump``, else ``mma.sync`` (bf16 and s8 forms) in the PTX of
+    ``attention.cu`` from ``nvcc -ptx``.  Raises unless every family has
+    each instruction it needs (> 0)."""
+    import shutil
+
+    from clip_tpu_torch.ops import _cuda
+
+    nvcc = _cuda._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump")
+    counts = {k: {"functions": 0, "HMMA": 0, "IMMA": 0} for k in TC_KERNELS}
+    if cuobjdump:
+        source = "cuobjdump -sass"
+        text = subprocess.run([cuobjdump, "-sass", str(_cuda.BUILD_DIR / _cuda.LIB_NAME)],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        blocks = text.split("Function : ")[1:]
+        ops = {"HMMA": "HMMA", "IMMA": "IMMA"}
+    else:
+        source = "nvcc -ptx attention.cu"
+        with tempfile.TemporaryDirectory() as tmp:
+            ptx = os.path.join(tmp, "attention.ptx")
+            subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=compute_90a", "-std=c++17",
+                            "-O3", "-ptx", "-o", ptx, str(_cuda.SRC_DIR / "attention.cu")],
+                           capture_output=True, text=True, timeout=300, check=True)
+            with open(ptx) as f:
+                text = f.read()
+        blocks = text.split(".entry ")[1:]
+        ops = {"HMMA": "mma.sync.aligned.m16n8k16", "IMMA": "mma.sync.aligned.m16n8k32"}
+    for block in blocks:
+        name = block.split(None, 1)[0]
+        for fam in TC_KERNELS:
+            if fam in name:
+                counts[fam]["functions"] += 1
+                for op, needle in ops.items():
+                    counts[fam][op] += block.count(needle)
+    for fam, need in TC_KERNELS.items():
+        c = counts[fam]
+        if not c["functions"] or any(c[op] <= 0 for op in need):
+            raise AssertionError(f"{fam}: no tensor-core instructions ({source}): {c}")
+    return {"read": source, **counts}
+
+
 def bound(nbytes: float, int8_ops: float = 0.0, bf16_flops: float = 0.0) -> tuple[float, str]:
     """Least time in ms for the card: the larger of the compulsory bytes over
     the memory rate and the operations over their peak rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(b: int, s: int, hl: int, valid_len: "int | None", in_bytes: float,
+                    out_bytes: float) -> tuple[float, str]:
+    """Bound of one attention core call over ``[b, s, 3 hl]``: q, k, v read
+    once (``in_bytes`` an element), the output written once, and q.k and p.v
+    over the keys this run needs (``valid_len`` of them) at the bf16 peak."""
+    vl = s if valid_len is None else valid_len
+    return bound(b * s * 3 * hl * in_bytes + b * s * hl * out_bytes,
+                 bf16_flops=4 * b * s * vl * hl)
+
+
+def sdpa_ms(q, k, v, causal: bool, scale: float, valid_len: "int | None"):
+    """One ``scaled_dot_product_attention`` call on the same q, k, v views
+    with the same mask (the library column; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    s = q.shape[-2]
+    mask = None
+    if valid_len is not None:  # keys >= valid_len masked in every row
+        mask = (torch.arange(s, device=q.device) < valid_len).expand(1, 1, s, s)
+    try:
+        return graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal, scale=scale))
+    except RuntimeError as e:
+        return f"not measured: {str(e).splitlines()[0]}"
 
 
 def w8(rng, n: int, k: int, device):
@@ -1034,7 +1119,6 @@ def staged_timing(schk: dict, engines: dict) -> dict:
     call; not the same function), and the cut towers: ViT-H/14 at B = 64,
     ViT-L/14-336 at B = 1 and 4, whole and per layer."""
     import torch
-    import torch.nn.functional as F
 
     from clip_tpu_torch.models.transformer import run_blocks
     from clip_tpu_torch.models.vision import encode_image, pad_once
@@ -1062,16 +1146,13 @@ def staged_timing(schk: dict, engines: dict) -> dict:
             lambda: at.mha_qkv_i8(codes, scales, quant_out=True, **kw))
         b, s, h3 = codes.shape
         nh = kw["n_head"]
+        vl, hl = kw["valid_len"] or s, h3 // 3
+        res[f"mha_qkv_i8_{name}_bound"] = bound(b * s * h3 + 4 * b * s + 2 * b * s * hl,
+                                                int8_ops=2 * b * s * vl * hl,
+                                                bf16_flops=2 * b * s * vl * hl)
         deq = (codes.float() * scales[..., None]).to(torch.bfloat16)
         q, k, v = (t.contiguous() for t in deq.reshape(b, s, 3, nh, -1).permute(2, 0, 3, 1, 4))
-        mask = None
-        if kw["valid_len"] is not None:  # keys >= valid_len masked in every row
-            mask = (torch.arange(s, device=codes.device) < kw["valid_len"]).expand(1, 1, s, s)
-        try:
-            res[f"sdpa_i8_{name}_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=kw["causal"], scale=kw["scale"]))
-        except RuntimeError as e:
-            res[f"sdpa_i8_{name}_ms"] = f"not measured: {str(e).splitlines()[0]}"
+        res[f"sdpa_i8_{name}_ms"] = sdpa_ms(q, k, v, kw["causal"], kw["scale"], kw["valid_len"])
     codes, scales, kw = a["mha_qkv_i8_vision"]
     res["mha_qkv_i8_vision_plain_ms"] = graph_ms(
         lambda: at.mha_qkv_i8_plain(codes, scales, **kw), iters=10)
@@ -1111,6 +1192,15 @@ def staged_timing(schk: dict, engines: dict) -> dict:
     return res
 
 
+def attn_block_stream_bound(b: int, s: int, h: int) -> tuple[float, str]:
+    """Row 8 over ``x [b, s, h]``: x read and the output written, both int8
+    weights, the vectors; the two GEMMs at the int8 peak and the attention
+    products at the bf16 peak."""
+    rows = b * s
+    return bound(2 * rows * h * 2 + 4 * h * h + 4 * 4 * h + 2 * 4 * 3 * h,
+                 int8_ops=2 * rows * 4 * h * h, bf16_flops=4 * b * s * s * h)
+
+
 def stream_bounds(sck: dict) -> dict:
     """Bounds of the last five kernels at the shapes of their kernels line:
     each input read once, each output written once, int8 products at the
@@ -1119,11 +1209,7 @@ def stream_bounds(sck: dict) -> dict:
     vecs = lambda n: 4 * n  # noqa: E731  (f32 vector bytes)
     out = {}
     (x, *_), kw = a["attn_block_stream_b16_384"]
-    b, s, h = x.shape
-    rows, nh = b * s, kw["n_head"]
-    out["attn_block_stream"] = bound(
-        2 * rows * h * 2 + 4 * h * h + 4 * vecs(h) + 2 * vecs(3 * h),
-        int8_ops=2 * rows * 4 * h * h, bf16_flops=4 * b * s * s * h)
+    out["attn_block_stream"] = attn_block_stream_bound(*x.shape)
     (x, *_), kw = a["mlp_lnq_stream_h14_exact"]
     rows, h = x.shape
     f = 4 * h
@@ -1150,7 +1236,6 @@ def stream_timing(sck: dict, engines: dict) -> dict:
     softmax and its bf16 p), and the ViT-B/16-384 tower at B = 1 and 8,
     whole and per layer, with its profile at B = 8."""
     import torch
-    import torch.nn.functional as F
 
     from clip_tpu_torch.models.transformer import run_blocks
     from clip_tpu_torch.models.vision import encode_image, pad_once
@@ -1168,6 +1253,7 @@ def stream_timing(sck: dict, engines: dict) -> dict:
     x8 = torch.randn(8, 584, 768, device="cuda").bfloat16()
     res["attn_block_stream_b16_384_b8_ms"] = graph_ms(
         lambda: at.attn_block_stream(x8, *args[1:], **kw))
+    res["attn_block_stream_b16_384_b8_bound"] = attn_block_stream_bound(*x8.shape)
     for name in ("exact", "chunks8"):
         args, kw = a[f"mlp_lnq_stream_h14_{name}"]
         res[f"mlp_lnq_stream_h14_{name}_ms"] = graph_ms(lambda: aq.mlp_lnq_stream(*args, **kw))
@@ -1191,13 +1277,25 @@ def stream_timing(sck: dict, engines: dict) -> dict:
         nh = kw["n_head"]
         res[f"mha_{key}_ms"] = graph_ms(lambda: at.mha(q, k, v, **kw))
         qh, kh, vh = (t.view(b, s, nh, h // nh).transpose(1, 2) for t in (q, k, v))
-        try:
-            res[f"sdpa_{key}_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=kw["causal"], scale=kw["scale"]))
-        except RuntimeError as e:
-            res[f"sdpa_{key}_ms"] = f"not measured: {str(e).splitlines()[0]}"
+        res[f"sdpa_{key}_ms"] = sdpa_ms(qh, kh, vh, kw["causal"], kw["scale"], None)
     q, k, v, kw = a["mha_vision_bf16"]
     res["mha_vision_bf16_plain_ms"] = graph_ms(lambda: at.mha_plain(q, k, v, **kw), iters=10)
+
+    # the attention core alone (f32 out, as row 8 calls it) at ViT-B/16-384
+    # [B, 584 valid 577, 12 x 64], against its plain version and SDPA
+    for b in (1, 8):
+        qkv = torch.randn(b * 584, 3 * 768, device="cuda").bfloat16()
+        got = at.attention_heads(qkv, b, 584, 12, 0.125, valid_len=577)
+        want = at.attention_heads_plain(qkv, b, 584, 12, 0.125, valid_len=577)
+        c = cos(got, want)
+        if not c > 0.9999:
+            raise AssertionError(f"attention_heads b16_384 B = {b}: cos {c}")
+        res[f"attention_heads_b16_384_b{b}_ms"] = graph_ms(
+            lambda: at.attention_heads(qkv, b, 584, 12, 0.125, valid_len=577))
+        res[f"attention_heads_b16_384_b{b}_bound"] = attention_bound(b, 584, 768, 577, 2, 4)
+        res[f"attention_heads_b16_384_b{b}_cos"] = c
+        q, k, v = qkv.reshape(b, 584, 3, 12, 64).permute(2, 0, 3, 1, 4)
+        res[f"sdpa_b16_384_b{b}_ms"] = sdpa_ms(q, k, v, False, 0.125, 577)
 
     eng = engines["b16_384_stream_attn"]
     cfg = eng.config.vision
@@ -1277,7 +1375,6 @@ def timing(device, chk: dict, engines: dict) -> dict:
     """Phase 6: device times of each kernel and its plain version at the
     main paths' shapes, and each engine's vision encode rate at B = 256."""
     import torch
-    import torch.nn.functional as F
 
     from clip_tpu_torch.models.vision import encode_image
     from clip_tpu_torch.ops import actquant as aq
@@ -1334,8 +1431,7 @@ def timing(device, chk: dict, engines: dict) -> dict:
             yard["torch._int_mm_qkv_ms"] = f"not measured: {str(e).splitlines()[0]}"
         q, k, v = qkv.reshape(b, s, 3, nh, h // nh).permute(2, 0, 3, 1, 4)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        yard["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=c["causal"]))
+        yard["sdpa_ms"] = sdpa_ms(q, k, v, c["causal"], c["ab_kw"]["scale"], None)
         res[tower]["yardsticks"] = yard
     steps["blocks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1344,17 +1440,13 @@ def timing(device, chk: dict, engines: dict) -> dict:
     # same mask (the library column only; the port never calls it)
     for name, (qkv, kw) in chk["mha_args"].items():
         res[f"mha_qkv_{name}_ms"] = graph_ms(lambda: at.mha_qkv(qkv, **kw))
-    for name in ("vision", "text"):
-        qkv, kw = chk["mha_args"][name]
         b, s, h3 = qkv.shape
+        res[f"mha_qkv_{name}_bound"] = attention_bound(b, s, h3 // 3, kw["valid_len"], 2, 2)
         q, k, v = qkv.reshape(b, s, 3, kw["n_head"], -1).permute(2, 0, 3, 1, 4)
-        res[f"mha_qkv_{name}_plain_ms"] = graph_ms(lambda: at.mha_qkv_plain(qkv, **kw),
-                                                   iters=10)
-        try:
-            res[f"sdpa_{name}_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=kw["causal"], scale=kw["scale"]))
-        except RuntimeError as e:
-            res[f"sdpa_{name}_ms"] = f"not measured: {str(e).splitlines()[0]}"
+        if name in ("vision", "text"):
+            res[f"mha_qkv_{name}_plain_ms"] = graph_ms(lambda: at.mha_qkv_plain(qkv, **kw),
+                                                       iters=10)
+        res[f"sdpa_{name}_ms"] = sdpa_ms(q, k, v, kw["causal"], kw["scale"], kw["valid_len"])
     for fmt, (xq, wq) in chk["qmatmul_args"].items():
         fn = getattr(qmm, f"qmatmul_q{fmt[1]}")
         res[f"qmatmul_{fmt}_ms"] = graph_ms(lambda: fn(xq, wq))
@@ -1435,7 +1527,8 @@ def main() -> int:
             info = build.result()
         _cuda.lib()
         say("[ptxas]\n" + info.ptxas)
-        phase_line("build", t0, nvcc_seconds=round(info.seconds, 2), nvcc_calls=1)
+        phase_line("build", t0, nvcc_seconds=round(info.seconds, 2), nvcc_calls=info.nvcc_calls,
+                   tensor_core_instructions=tensor_core_counts())
 
         t0 = time.perf_counter()
         chk = check_kernels(device)

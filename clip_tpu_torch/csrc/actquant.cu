@@ -60,6 +60,10 @@
 namespace {
 
 using ctt::bf16_round;
+using ctt::cp_async16;
+using ctt::cp_async_commit;
+using ctt::cp_async_wait;
+using ctt::mma_s8;
 
 constexpr int kLnThreads = 256;
 constexpr int kLnMaxPer = 8;  // rows up to 2048 wide stay in registers
@@ -190,23 +194,6 @@ constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int LDS = BK + 16;  // 80-byte rows: fragment loads hit 32 distinct banks
 constexpr int kGemmThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src, int rows_left,
                                           int ld, int k0) {
   // 128 rows x 4 chunks of 16 bytes; two chunks per thread
@@ -295,7 +282,7 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
     }
     __syncthreads();
     if constexpr (Grouped) {

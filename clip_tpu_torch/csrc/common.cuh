@@ -1,6 +1,7 @@
 // Helpers shared by the kernels of clip_tpu_torch: warp and block
-// reductions and the row quantizer.  No PyTorch headers: the library is built
-// with one plain nvcc call and bound with ctypes.
+// reductions, the row quantizer, asynchronous copies and tensor-core
+// fragments.  No PyTorch headers: the library is built with plain nvcc
+// calls and bound with ctypes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +67,78 @@ __device__ __forceinline__ int8_t quant_code(float y, float sx) {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// -- asynchronous copies and tensor-core fragments (sm_80 and later) ----------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with pred false the 16 bytes are zero-filled
+// (src-size 0) and gmem is not read
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(n));
+}
+
+// 4 bytes global -> shared, zero-filled when pred is false
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each); lanes
+// 8i..8i+7 give the row addresses of matrix i, and lane l receives row l/4,
+// elements 2(l%4) and 2(l%4)+1 of each matrix (with .trans: row 2(l%4) and
+// 2(l%4)+1 of column l/4)
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+
+// C[16x8] += A[16x32] . B[32x8] in int8 with exact int32 accumulation
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C[16x8] += A[16x16] . B[16x8] in bf16 with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, x in the low half (the lower column of a fragment)
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 }  // namespace ctt

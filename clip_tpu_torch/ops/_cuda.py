@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of ``clip_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile in ONE ``nvcc`` call into a shared library
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into a shared library
 with a plain C interface (no PyTorch headers), which ``ctypes`` loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libclip_tpu_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <obj>/attention.o csrc/attention.cu      # one per source
+    nvcc -shared -o _build/libclip_tpu_torch_kernels.so <obj>/*.o
 
 The build runs at first use into ``clip_tpu_torch/_build/`` and again
 whenever the sources' hash changes.  A failed build raises; nothing falls
@@ -50,8 +52,9 @@ _SIGNATURES = {
 
 @dataclass
 class BuildInfo:
-    seconds: float        # wall time of the nvcc call; 0.0 when the library was reused
+    seconds: float        # wall time of the nvcc calls; 0.0 when the library was reused
     ptxas: str            # -Xptxas -v register / spill summary
+    nvcc_calls: int = 0   # one per source, side by side, and the link
 
 
 _lock = threading.Lock()
@@ -89,6 +92,26 @@ def _ptxas_summary(stderr: str) -> str:
     return "\n".join(keep)
 
 
+def _run_all(cmds: list[list[str]], timeout: float) -> list[subprocess.CompletedProcess]:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    deadline = time.monotonic() + timeout
+    done = []
+    try:
+        for cmd, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on {cmd[-1]}:\n{err[-8000:]}")
+            done.append(subprocess.CompletedProcess(cmd, p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return done
+
+
 def build(force: bool = False) -> BuildInfo:
     """Compile the kernels if the library is missing or stale; return what
     the build did."""
@@ -98,26 +121,23 @@ def build(force: bool = False) -> BuildInfo:
     digest = _source_hash()
     if not force and lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return BuildInfo(0.0, "")
-    # build into a temporary name and rename, so that a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[str(p) for p in _sources()]]
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC"]
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-    os.replace(tmp, lib_path)
+    # objects and the library go to temporary names, and the library is
+    # renamed into place, so that a concurrent process never loads a
+    # half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [str(Path(objdir) / f"{src.stem}.o") for src in _sources()]
+        compiled = _run_all([[nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
+                             for src, obj in zip(_sources(), objs)], NVCC_TIMEOUT_S)
+        tmp = str(Path(objdir) / LIB_NAME)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]], NVCC_TIMEOUT_S)
+        os.replace(tmp, lib_path)
     stamp.write_text(digest)
-    return BuildInfo(seconds, _ptxas_summary(res.stderr))
+    return BuildInfo(time.perf_counter() - t0,
+                     "\n".join(_ptxas_summary(r.stderr) for r in compiled), len(objs) + 1)
 
 
 def lib() -> ctypes.CDLL:

@@ -17,8 +17,12 @@ GEMMs mask their ragged row tiles.
 :func:`mha_qkv` is the same attention core with its per-head output rounded
 to the compute dtype, as ``mha_pallas_qkv`` writes it; the TPU kernel's
 ``quant_out=True`` form is :func:`attention_heads` followed by
-``ops.actquant.requant``.  The core takes any S up to 640 at d_head 64 or 80
-(:func:`attention_smem`); the wrappers raise before a launch it cannot take.
+``ops.actquant.requant``.  On bf16 (and int8) inputs the core runs on the
+tensor cores in query tiles of 64 rows with K and V streamed through shared
+memory, so it takes any S at a d_head that is a multiple of 16 up to 128
+(:func:`attention_plan`); the f32 form of :func:`mha` keeps a CUDA-core
+kernel that holds a head's K and V in shared memory (S <= 344 at d_head 80,
+425 at 64).  The wrappers raise before a launch the kernels cannot take.
 
 :func:`mha_qkv_i8` (counterpart of ``ops/attention_pallas.py:278
 mha_pallas_qkv_i8``) is attention over an int8 qkv projection with per-row
@@ -57,7 +61,7 @@ from . import _cuda
 from .actquant import (BIAS, GROUPED, RESID, gemm_i8, gemm_i8_plain, lnq, lnq_plain, mlp_lnq,
                        mlp_lnq_plain, requant, requant_plain)
 
-__all__ = ["NEG_INF", "attention_heads", "attention_heads_plain", "attn_block",
+__all__ = ["NEG_INF", "attention_heads", "attention_heads_plain", "attention_plan", "attn_block",
            "attn_block_fusable", "attn_block_plain", "attn_block_stream",
            "attn_block_stream_fusable", "attn_block_stream_plain", "flat_eligible",
            "layer_block", "layer_block_fusable", "layer_block_plain", "mha", "mha_plain",
@@ -205,16 +209,79 @@ def attention_heads_plain(qkv, b: int, s: int, n_head: int, scale: float,
     return out.permute(0, 2, 1, 3).reshape(b * s, hl)
 
 
-_ATTN_WARPS = 4
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on Hopper
+_BQ = _BK = 64        # query rows a block, keys a shared-memory tile (csrc/attention.cu)
+_THREADS = 128        # four warps of 16 query rows
+_MAX_DH = 128         # the Q and O fragments of a d_head live in registers
+_ROWSUM_SMEM = 4 * 16 * (_BK + 4) * 4  # each warp's 16 rows of e, for the row sums
 
 
 def attention_smem(s: int, dh: int, itemsize: int = 2) -> int:
     """Bytes of shared memory ``ctt_attention`` takes at sequence length
-    ``s`` and head width ``dh``: K and V rows of ``dh + 2`` elements of the
-    input (``itemsize`` bytes each), and one f32 p row and one f32 query row
-    per warp (``csrc/attention.cu``)."""
-    return 2 * s * (dh + 2) * itemsize + _ATTN_WARPS * (s + dh) * 4
+    ``s`` and head width ``dh`` (``csrc/attention.cu``).  bf16 in
+    (``itemsize`` 2): two buffers of a 64-key K tile and a V tile, rows of
+    ``dh + 8`` elements, and the row-sum scratch, whatever ``s``.  f32 in
+    (4): the CUDA-core kernel's whole K and V of a head in rows of
+    ``dh + 2``, and one f32 p row and one query row per warp."""
+    if itemsize == 2:
+        return 2 * 2 * _BK * (dh + 8) * 2 + _ROWSUM_SMEM
+    return (2 * s * (dh + 2) + 4 * (s + dh)) * 4
+
+
+def _i8_pad(dh: int) -> int:
+    return -(-dh // 32) * 32
+
+
+def attention_i8_smem(s: int, dh: int) -> int:
+    """Bytes of shared memory ``ctt_attention_i8`` takes, whatever ``s``: the
+    dequantized bf16 V tile (rows of ``dh + 8``), two buffers of 64 K rows
+    of codes (``dh`` padded to a multiple of 32, + 16 bytes), two of V codes,
+    two of the K rows' scales and the row-sum scratch (``csrc/attention.cu``)."""
+    return (_BK * (dh + 8) * 2 + 2 * _BK * (_i8_pad(dh) + 16) + 2 * _BK * dh + 2 * _BK * 4
+            + _ROWSUM_SMEM)
+
+
+def attention_plan(b: int, s: int, n_head: int, dh: int, kind: str = "bf16") -> dict:
+    """The launch of an attention kernel: ``grid``, ``threads``, shared
+    ``smem`` bytes and the d_head the block computes with (``dh_pad``).
+    ``kind``: ``"bf16"`` or ``"i8"`` (the tensor-core kernels, one block per
+    64 query rows of a head of an image) or ``"f32"`` (one block per head of
+    an image).  Raises ValueError on a geometry the kernel cannot take."""
+    if kind == "f32":
+        if dh % 2:
+            raise ValueError(f"d_head {dh} must be even")
+        grid = (n_head, b)
+        smem = attention_smem(s, dh, 4)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"S = {s}, d_head = {dh} needs {smem} B of shared memory, more "
+                             f"than the {SMEM_LIMIT} B a block may have")
+        plan = dict(grid=grid, threads=_THREADS, smem=smem, dh_pad=dh)
+    elif kind in ("bf16", "i8"):
+        if dh % 16 or not 16 <= dh <= _MAX_DH:
+            raise ValueError(f"d_head {dh} must be a multiple of 16 up to {_MAX_DH}")
+        grid = (-(-s // _BQ), n_head, b)
+        smem = attention_smem(s, dh) if kind == "bf16" else attention_i8_smem(s, dh)
+        plan = dict(grid=grid, threads=_THREADS, smem=smem,
+                    dh_pad=dh if kind == "bf16" else _i8_pad(dh))
+    else:
+        raise ValueError(f"kind {kind!r}: expected 'bf16', 'i8' or 'f32'")
+    return plan
+
+
+def _plan(name: str, b: int, s: int, n_head: int, dh: int, kind: str) -> dict:
+    """:func:`attention_plan`, its error named after the wrapper ``name``."""
+    try:
+        return attention_plan(b, s, n_head, dh, kind)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def _aligned(name: str, **ptrs: int) -> None:
+    """The tensor-core kernels copy 16-byte chunks: raise unless every
+    pointer is 16-byte aligned."""
+    for k, v in ptrs.items():
+        if v % 16:
+            raise ValueError(f"{name}: {k} at {v:#x} is not 16-byte aligned")
 
 
 # ctt_attention's io codes: (input dtype, output dtype)
@@ -231,15 +298,17 @@ def _attention(q, k_ptr: int, v_ptr: int, ld: int, b: int, s: int, n_head: int, 
     io = _ATTN_IO.get((q.dtype, out_dtype))
     if io is None:
         raise TypeError(f"{name}: {q.dtype} in, {out_dtype} out is not a form of the kernel")
-    if dh % 2 or ld % 2:
-        raise ValueError(f"{name}: d_head {dh} and row stride {ld} must be even")
     vl = s if valid_len is None else valid_len
     if not 1 <= vl <= s:
         raise ValueError(f"{name}: valid_len {vl} outside [1, {s}]")
-    smem = attention_smem(s, dh, q.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: S = {s}, d_head = {dh} needs {smem} B of shared memory, "
-                         f"more than the {SMEM_LIMIT} B a block may have")
+    _plan(name, b, s, n_head, dh, "f32" if io == 2 else "bf16")
+    if io == 2:
+        if ld % 2:
+            raise ValueError(f"{name}: row stride {ld} must be even")
+    else:
+        if ld % 8:
+            raise ValueError(f"{name}: row stride {ld} must be a multiple of 8")
+        _aligned(name, q=q.data_ptr(), k=k_ptr, v=v_ptr)
     out = torch.empty(b * s, n_head * dh, dtype=out_dtype, device=q.device)
     _cuda.check(_cuda.lib().ctt_attention(
         q.data_ptr(), k_ptr, v_ptr, ld, out.data_ptr(), b, s, n_head, dh, float(scale), int(causal), vl, io,
@@ -336,14 +405,6 @@ def mha_qkv_i8_plain(codes, scales, *, n_head: int, scale: float, causal: bool =
     return out.to(out_dtype).reshape(b, s, h3 // 3)
 
 
-def attention_i8_smem(s: int, dh: int) -> int:
-    """Bytes of shared memory ``ctt_attention_i8`` takes: K codes as rows of
-    ``dh / 4 + 1`` 32-bit words, V dequantized to bf16 rows of ``dh + 2``, the
-    K-side row scales, and one f32 p row and one query row of codes per warp
-    (``csrc/attention.cu``)."""
-    return s * (dh // 4 + 1) * 4 + s * (dh + 2) * 2 + s * 4 + _ATTN_WARPS * (s * 4 + dh)
-
-
 def mha_qkv_i8(codes, scales, *, n_head: int, scale: float, causal: bool = False,
                valid_len: int | None = None, quant_out: bool = False,
                out_dtype=torch.bfloat16):
@@ -359,18 +420,15 @@ def mha_qkv_i8(codes, scales, *, n_head: int, scale: float, causal: bool = False
     dh = hl // n_head
     _cuda.require(codes, "codes", torch.int8, (b, s, h3), codes.device)
     _cuda.require(scales, "scales", torch.float32, (b, s), codes.device)
-    if h3 % 3 or hl % n_head or dh % 4:
-        raise ValueError(f"mha_qkv_i8: width {h3} does not split into 3 x {n_head} heads "
-                         "of a multiple of 4")
+    if h3 % 3 or hl % n_head:
+        raise ValueError(f"mha_qkv_i8: width {h3} does not split into 3 x {n_head} heads")
     if not quant_out and out_dtype != torch.bfloat16:
         raise TypeError(f"mha_qkv_i8: the kernel writes bfloat16, not {out_dtype}")
     vl = s if valid_len is None else valid_len
     if not 1 <= vl <= s:
         raise ValueError(f"mha_qkv_i8: valid_len {vl} outside [1, {s}]")
-    if attention_i8_smem(s, dh) > SMEM_LIMIT:
-        raise ValueError(f"mha_qkv_i8: S = {s}, d_head = {dh} needs "
-                         f"{attention_i8_smem(s, dh)} B of shared memory, more than the "
-                         f"{SMEM_LIMIT} B a block may have")
+    _plan("mha_qkv_i8", b, s, n_head, dh, "i8")
+    _aligned("mha_qkv_i8", codes=codes.data_ptr())
     odt = torch.float32 if quant_out else torch.bfloat16
     out = torch.empty(b * s, hl, dtype=odt, device=codes.device)
     _cuda.check(_cuda.lib().ctt_attention_i8(

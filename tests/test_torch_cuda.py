@@ -194,9 +194,69 @@ def test_mha_qkv_matches_plain(card, b, s, nh, dh, vl, causal):
 
 
 def test_mha_qkv_raises_past_shared_memory(card):
-    qkv = torch.zeros(1, 700, 3 * 80, dtype=torch.bfloat16, device=card)
+    """The tiled core's shared memory does not grow with S: S = 700 (past
+    the first version's 640) matches the plain version; a d_head that is not
+    a multiple of 16 raises before a launch, and so does the f32 form (which
+    holds a head's K and V in shared memory) at S = 700."""
+    rng = np.random.default_rng(30)
+    qkv = _x(rng, (1, 700, 3 * 80), card)
+    kw = dict(n_head=1, scale=80 ** -0.5)
+    out = at.mha_qkv(qkv, **kw)
+    want = at.mha_qkv_plain(qkv, **kw)
+    assert _cos(out, want) > 0.9999
+    torch.testing.assert_close(out, want, rtol=1.6e-2, atol=1e-3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        at.mha_qkv(_x(rng, (1, 40, 3 * 72), card), n_head=1, scale=0.1)
+    q = _x(rng, (1, 700, 80), card).float()
     with pytest.raises(ValueError, match="shared memory"):
-        at.mha_qkv(qkv, n_head=1, scale=0.1)
+        at.mha(q, q, q, n_head=1, scale=0.1)
+
+
+# the tiled tensor-core core: ragged query tiles (S = 65, 129), d_head 32 and
+# 80, causal across several tiles, valid_len inside the last tile
+_TILED = [(2, 65, 2, 64, None, False), (1, 129, 3, 32, None, False),
+          (2, 129, 2, 80, None, True), (1, 200, 2, 32, None, True),
+          (3, 65, 2, 80, 61, False), (1, 257, 2, 48, 200, True), (2, 50, 2, 128, None, False)]
+
+
+@pytest.mark.parametrize("out_bf16", [False, True])
+@pytest.mark.parametrize("b,s,nh,dh,vl,causal", _TILED)
+def test_attention_tiles_match_plain(card, b, s, nh, dh, vl, causal, out_bf16):
+    rng = np.random.default_rng(31)
+    qkv = _x(rng, (b, s, 3 * nh * dh), card)
+    kw = dict(n_head=nh, scale=dh ** -0.5, causal=causal, valid_len=vl)
+    if out_bf16:
+        out, want = at.mha_qkv(qkv, **kw), at.mha_qkv_plain(qkv, **kw)
+        tol = dict(rtol=1.6e-2, atol=1e-3)
+    else:
+        q2 = qkv.reshape(b * s, -1)
+        out = at.attention_heads(q2, b, s, nh, kw["scale"], causal, vl)
+        want = at.attention_heads_plain(q2, b, s, nh, kw["scale"], causal, vl)
+        tol = dict(rtol=1e-3, atol=1e-3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _cos(out, want) > 0.9999
+    torch.testing.assert_close(out, want, **tol)
+
+
+def test_attention_is_deterministic(card):
+    """The second pass recomputes the first pass's scores bit for bit, and
+    two launches give the same bits (rows 8 and 12 rely on it)."""
+    rng = np.random.default_rng(32)
+    qkv = _x(rng, (2 * 584, 3 * 2 * 64), card)
+    a = at.attention_heads(qkv, 2, 584, 2, 0.125, valid_len=577)
+    assert torch.equal(a, at.attention_heads(qkv, 2, 584, 2, 0.125, valid_len=577))
+
+
+def test_mha_raises_on_misaligned_pointers(card):
+    """The tensor-core kernels copy 16-byte chunks with cp.async: a view
+    whose data starts off a 16-byte boundary raises before a launch."""
+    rng = np.random.default_rng(33)
+    buf = _x(rng, (3 * 13 * 128 + 1,), card)
+    q = buf[1:].reshape(3, 13, 128)
+    k = v = _x(rng, (3, 13, 128), card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.mha(q, k, v, n_head=2, scale=0.125)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -301,7 +361,11 @@ def test_mlp_gq_matches_plain(card):
                                                   (2, 80, 2, 64, None, True),
                                                   (2, 50, 2, 80, None, False),
                                                   (1, 584, 2, 64, 577, False),
-                                                  (1, 640, 1, 80, None, False)])
+                                                  (1, 640, 1, 80, None, False),
+                                                  (2, 65, 2, 80, None, False),
+                                                  (1, 129, 2, 80, None, True),
+                                                  (2, 129, 2, 80, 100, False),
+                                                  (1, 200, 3, 32, None, True)])
 def test_mha_qkv_i8_matches_plain(card, b, s, nh, dh, vl, causal, quant_out):
     rng = np.random.default_rng(17)
     codes = torch.from_numpy(rng.integers(-127, 128, (b, s, 3 * nh * dh), dtype=np.int8))

@@ -228,6 +228,64 @@ def test_attention_core_fits_every_single_image_sequence(s, dh):
     assert 3 * 577 * (64 + 2) * 2 + 4 * 577 * 4 > SMEM_LIMIT
 
 
+# (variant, tower, images, S the tower runs at): the vision towers at their
+# pad-once S (ViT-B/16 at 384 px as the streamed-block path), the text
+# towers at 77 padded to 80
+_CATALOG_ATTENTION = [("ViT-B/32", "vision", 64, 50), ("ViT-B/32", "text", 8, 80),
+                      ("ViT-B/16", "vision", 1, 584), ("ViT-B/16", "vision", 8, 584),
+                      ("ViT-L/14-336", "vision", 4, 584), ("ViT-L/14", "text", 8, 80),
+                      ("ViT-H/14", "vision", 64, 264), ("ViT-H/14", "text", 8, 80)]
+
+
+@pytest.mark.parametrize("variant,tower,b,s", _CATALOG_ATTENTION)
+@pytest.mark.parametrize("kind", ["bf16", "i8"])
+def test_attention_plan_at_catalog_shapes(variant, tower, b, s, kind):
+    """The tensor-core cores launch one block of four warps per 64 query
+    rows of a head of an image (so 120 blocks at ViT-B/16-384 B = 1, 960 at
+    B = 8, 768 at ViT-B/32 vision B = 64), with shared memory that does not
+    grow with S; the int8 core pads d_head to a multiple of 32."""
+    from clip_tpu_torch.ops.attention import attention_i8_smem, attention_plan
+    from clip_tpu_torch.synth import VARIANTS
+
+    v = VARIANTS[variant]
+    nh, width = (v.v_heads, v.v_hidden) if tower == "vision" else (v.t_heads, v.t_hidden)
+    dh = width // nh
+    plan = attention_plan(b, s, nh, dh, kind)
+    assert plan["grid"] == (-(-s // 64), nh, b) and plan["threads"] == 128
+    smem = attention_smem(s, dh) if kind == "bf16" else attention_i8_smem(s, dh)
+    assert plan["smem"] == smem == (attention_smem(4096, dh) if kind == "bf16"
+                                    else attention_i8_smem(4096, dh))
+    assert plan["smem"] <= 64 * 1024
+    assert plan["dh_pad"] == (dh if kind == "bf16" else -(-dh // 32) * 32)
+    blocks = {("ViT-B/32", "vision", 64): 768, ("ViT-B/16", "vision", 1): 120,
+              ("ViT-B/16", "vision", 8): 960}.get((variant, tower, b))
+    if blocks is not None:
+        assert plan["grid"][0] * plan["grid"][1] * plan["grid"][2] == blocks
+
+
+@pytest.mark.parametrize("dh,kind,match", [(72, "bf16", "multiple of 16"),
+                                           (144, "i8", "multiple of 16"),
+                                           (8, "bf16", "multiple of 16"),
+                                           (81, "f32", "even")])
+def test_attention_plan_rejects_what_the_kernels_do_not_take(dh, kind, match):
+    from clip_tpu_torch.ops.attention import attention_plan
+
+    with pytest.raises(ValueError, match=match):
+        attention_plan(2, 50, 4, dh, kind)
+
+
+def test_attention_plan_f32_keeps_the_shared_memory_bound():
+    """The f32 form keeps the CUDA-core kernel, which holds a head's K and V
+    in f32: S = 344 fits at d_head 80, S = 345 does not; the tensor-core
+    cores take S = 700."""
+    from clip_tpu_torch.ops.attention import attention_plan
+
+    assert attention_plan(1, 344, 1, 80, "f32")["grid"] == (1, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_plan(1, 345, 1, 80, "f32")
+    assert attention_plan(1, 700, 1, 80, "bf16")["grid"] == (11, 1, 1)
+
+
 @pytest.mark.parametrize("mode", ["plain", "causal", "valid_len"])
 def test_mha_qkv_quant_out_is_attention_then_requant(mode):
     """``mha_pallas_qkv(quant_out=True)`` is the f32 attention followed by
