@@ -8,10 +8,13 @@ Phases, each printing one flushed line with its wall seconds:
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
 2. build: the kernels of ``clip_tpu_torch/csrc``, one ``nvcc`` process per
    source side by side and one link, with the ``-Xptxas -v`` register and
-   spill summary, and the tensor-core instructions of the two tiled
-   attention kernels counted (HMMA and IMMA in ``cuobjdump -sass`` of the
-   library, or ``mma.sync`` in ``nvcc -ptx`` of ``attention.cu`` where the
-   toolkit has no ``cuobjdump``; each must be > 0).  Meanwhile a pool of
+   spill summary, the tensor-core instructions of the two tiled attention
+   kernels and the two wgmma GEMMs counted (HMMA, IMMA and IGMMA in
+   ``cuobjdump -sass`` of the library, or ``mma.sync`` and
+   ``wgmma.mma_async`` in ``nvcc -ptx`` of their sources where the toolkit
+   has no ``cuobjdump``; each must be > 0), and the GEMMs' dynamic shared
+   memory, ring stages and the clusters ``ctt_gemm_gq`` fits on the card
+   at once.  Meanwhile a pool of
    worker processes writes the seeded random checkpoints of the path
    phases into a temporary directory, and the profiler sets up its device
    tracing;
@@ -25,7 +28,8 @@ Phases, each printing one flushed line with its wall seconds:
 4. staged_kernels: the staged routes' wrappers against their plain
    versions at the new paths' shapes (``lnq`` at [64 x 264, 1280] and
    [2 x 584, 1024]; ``gemm_gq`` with gelu at ViT-H/14's up GEMM and with no
-   activation at ViT-B/32's qkv GEMM; ``w8a8_pre`` at ViT-H/14's down and
+   activation at ViT-B/32's qkv GEMM, each also bit-equal to the two-launch
+   chain ``requant(gemm_i8(...))``; ``w8a8_pre`` at ViT-H/14's down and
    ViT-L/14-336's qkv GEMM; ``mlp_gq`` at ViT-B/32; ``mha_qkv_i8`` at
    64 x 50, 8 x 80 causal and 2 x 584 valid 577, both output forms), and
    device preprocessing against the host path (atol 5e-4 in pixel space);
@@ -36,7 +40,9 @@ Phases, each printing one flushed line with its wall seconds:
    ``mlp_lnq_stream`` at ViT-H/14 [64 x 264, 1280] with ``exact=True`` and
    ``exact=False`` (8 chunks), and bit-equal to ``mlp_lnq`` with
    ``exact=True`` or one chunk; the grouped requant and the grouped GEMM
-   epilogue alone (the GEMM bit-equal to its plain version); ``actq`` for
+   epilogue alone (the GEMM bit-equal to its plain version), and
+   ``ctt_gemm_gq`` over the 8 chunks bit-equal to the grouped requant of
+   the f32 up GEMM; ``actq`` for
    each activation at [16896, 5120]; ``mha`` at ViT-B/32 vision [64, 50,
    768] and causal text [8, 77, 512] in bf16 and f32; ``layer_block`` at
    [64, 50, 768] and causal [8, 80, 512], bit-equal to ``attn_block`` then
@@ -52,8 +58,8 @@ Phases, each printing one flushed line with its wall seconds:
    rows, on the int8 GEMM at 2336); a q4_0 ViT-B/16 vision tower at 384 px,
    all 12 layers (1 and 8 images; S 577 padded to 584: every layer's
    attention on the streamed block, ``attn_block_stream``).  Every counter
-   must rise by the count
-   the route implies, the embeddings must be finite and unit-norm and agree
+   must rise by the count the route implies (the q4_0 path's ``gemm_i8``
+   count too), the embeddings must be finite and unit-norm and agree
    (per-row cos > 0.999) with the same engine forced onto its plain
    versions in float32.  The f16 path encodes its images once more with
    bf16 reduced-precision reductions off and reports the largest change;
@@ -82,7 +88,19 @@ Phases, each printing one flushed line with its wall seconds:
    and their plain versions at the shapes checked, SDPA on the same q, k, v
    beside ``mha``, the ViT-B/16-384 tower at B = 1 and 8, whole and per
    layer, with its profile at B = 8, and the ViT-H/14 tower with and
-   without ``mlp_stream``.
+   without ``mlp_stream``;
+10. gemm_yardsticks: ``gemm_i8`` with the int32 epilogue beside one
+   ``torch._int_mm`` call (equal outputs checked) and the bound, at the
+   paths' GEMM shapes (ViT-B/32 at B = 256 and its text tower, ViT-H/14's
+   up and down, ViT-L/14-336 and ViT-B/16-384 at B = 1), and the grouped
+   epilogue at ViT-B/16-384's streamed o GEMM at B = 8.
+
+``python3 chip_smoke.py --gemm-yardsticks`` runs phase 10 alone against the
+package beside the script (how a parent's GEMM is timed in the same call:
+a copy of this script beside the parent's package).  ``python3
+chip_smoke.py --gemm-gq-phases`` builds ``gemm_gq.cu`` with its phase
+timestamps and prints where a ``ctt_gemm_gq`` block's time goes at
+ViT-H/14's and ViT-B/32's up GEMMs.
 
 It then prints the ``kernels`` JSON line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -211,16 +229,23 @@ def profile_kernels(fn) -> dict:
             "device_ms_by_kernel": top}
 
 
-# kernel families of csrc/attention.cu that must run on the tensor cores
-TC_KERNELS = {"attention_tc_kernel": ("HMMA",), "attention_i8_tc_kernel": ("IMMA", "HMMA")}
+# kernel families that must run on the tensor cores: (source, instructions);
+# IGMMA is wgmma over int8
+TC_KERNELS = {"attention_tc_kernel": ("attention.cu", ("HMMA",)),
+              "attention_i8_tc_kernel": ("attention.cu", ("IMMA", "HMMA")),
+              "gemm_i8_wgmma_kernel": ("actquant.cu", ("IGMMA",)),
+              "gemm_gq_kernel": ("actquant.cu", ("IGMMA",))}
+PTX_OPS = {"HMMA": "mma.sync.aligned.m16n8k16", "IMMA": "mma.sync.aligned.m16n8k32",
+           "IGMMA": "wgmma.mma_async"}
 
 
 def tensor_core_counts() -> dict:
-    """Tensor-core instructions in the two tiled attention kernels: HMMA and
-    IMMA in ``cuobjdump -sass`` of the built library where the toolkit has
-    ``cuobjdump``, else ``mma.sync`` (bf16 and s8 forms) in the PTX of
-    ``attention.cu`` from ``nvcc -ptx``.  Raises unless every family has
-    each instruction it needs (> 0)."""
+    """Tensor-core instructions in the tiled attention kernels and the wgmma
+    GEMMs: HMMA, IMMA and IGMMA in ``cuobjdump -sass`` of the built library
+    where the toolkit has ``cuobjdump``, else ``mma.sync`` (bf16 and s8
+    forms) and ``wgmma.mma_async`` in the PTX of their sources from ``nvcc
+    -ptx``.  Raises unless every family has each instruction it needs
+    (> 0)."""
     import shutil
 
     from clip_tpu_torch.ops import _cuda
@@ -229,24 +254,26 @@ def tensor_core_counts() -> dict:
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
         cuobjdump = shutil.which("cuobjdump")
-    counts = {k: {"functions": 0, "HMMA": 0, "IMMA": 0} for k in TC_KERNELS}
+    counts = {k: {"functions": 0, **dict.fromkeys(PTX_OPS, 0)} for k in TC_KERNELS}
     if cuobjdump:
         source = "cuobjdump -sass"
         text = subprocess.run([cuobjdump, "-sass", str(_cuda.BUILD_DIR / _cuda.LIB_NAME)],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         blocks = text.split("Function : ")[1:]
-        ops = {"HMMA": "HMMA", "IMMA": "IMMA"}
+        ops = {op: op for op in PTX_OPS}
     else:
-        source = "nvcc -ptx attention.cu"
+        source = "nvcc -ptx"
+        blocks = []
         with tempfile.TemporaryDirectory() as tmp:
-            ptx = os.path.join(tmp, "attention.ptx")
-            subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=compute_90a", "-std=c++17",
-                            "-O3", "-ptx", "-o", ptx, str(_cuda.SRC_DIR / "attention.cu")],
-                           capture_output=True, text=True, timeout=300, check=True)
-            with open(ptx) as f:
-                text = f.read()
-        blocks = text.split(".entry ")[1:]
-        ops = {"HMMA": "mma.sync.aligned.m16n8k16", "IMMA": "mma.sync.aligned.m16n8k32"}
+            for src in sorted({src for src, _ in TC_KERNELS.values()}):
+                ptx = os.path.join(tmp, src + ".ptx")
+                subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=compute_90a",
+                                "-std=c++17", "-O3", "-ptx", "-o", ptx,
+                                str(_cuda.SRC_DIR / src)],
+                               capture_output=True, text=True, timeout=300, check=True)
+                with open(ptx) as f:
+                    blocks += f.read().split(".entry ")[1:]
+        ops = PTX_OPS
     for block in blocks:
         name = block.split(None, 1)[0]
         for fam in TC_KERNELS:
@@ -254,11 +281,107 @@ def tensor_core_counts() -> dict:
                 counts[fam]["functions"] += 1
                 for op, needle in ops.items():
                     counts[fam][op] += block.count(needle)
-    for fam, need in TC_KERNELS.items():
+    for fam, (_, need) in TC_KERNELS.items():
         c = counts[fam]
         if not c["functions"] or any(c[op] <= 0 for op in need):
             raise AssertionError(f"{fam}: no tensor-core instructions ({source}): {c}")
     return {"read": source, **counts}
+
+
+def gemm_launch_info() -> dict:
+    """Dynamic shared memory of each ``ctt_gemm_i8`` tile, and of
+    ``ctt_gemm_gq`` at the cluster plan of each shipped requant width, with
+    its ring stages and the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    from clip_tpu_torch.ops import _cuda
+    from clip_tpu_torch.ops import actquant as aq
+
+    lib = _cuda.lib()
+    out = {"gemm_i8_smem": {f"{64 * wg}x{bn}": lib.ctt_gemm_i8_smem(tile)
+                            for tile, (wg, bn) in enumerate(aq.GEMM_TILES)},
+           "gemm_gq": {}}
+    info = (ctypes.c_int * 3)()
+    for g in (2048, 3072, 4096, 5120, 640, 1536, 2304):
+        cs, cpb = aq.gq_plan(g)
+        _cuda.check(lib.ctt_gemm_gq_info(cs, cpb, info), "ctt_gemm_gq_info")
+        out["gemm_gq"][g] = dict(cluster=cs, columns=cpb, smem=info[0], stages=info[1],
+                                 max_active_clusters=info[2])
+    return out
+
+
+# the int8 GEMM alone (kAcc) at the paths' shapes: name -> (rows, N, K)
+GEMM_SHAPES = {
+    "b32_b256_qkv": (12800, 2304, 768), "b32_b256_o": (12800, 768, 768),
+    "b32_b256_up": (12800, 3072, 768), "b32_b256_down": (12800, 768, 3072),
+    "b32_text_qkv": (640, 1536, 512), "b32_text_o": (640, 512, 512),
+    "b32_text_up": (640, 2048, 512), "b32_text_down": (640, 512, 2048),
+    "h14_up": (16896, 5120, 1280), "h14_down": (16896, 1280, 5120),
+    "l14_336_b1_qkv": (584, 3072, 1024), "l14_336_b1_o": (584, 1024, 1024),
+    "l14_336_b1_up": (584, 4096, 1024), "l14_336_b1_down": (584, 1024, 4096),
+    "b16_384_b1_qkv": (584, 2304, 768), "b16_384_b1_o": (584, 768, 768),
+    "b16_384_b1_up": (584, 3072, 768), "b16_384_b1_down": (584, 768, 3072),
+}
+
+
+def gemm_yardsticks() -> dict:
+    """Device time of ``gemm_i8`` with the int32 epilogue (ACC) beside one
+    ``torch._int_mm`` call on the same operands (the library column; the
+    port never calls it) and the bound (the int8 products at the int8 peak,
+    or the bytes: A and B read once, C written once), at ``GEMM_SHAPES``;
+    and the grouped epilogue at ViT-B/16-384's streamed o GEMM at B = 8
+    (4672 rows, K 768 in groups of 256).  Runs against whichever
+    ``clip_tpu_torch`` is first on ``sys.path``."""
+    import torch
+
+    from clip_tpu_torch.ops import actquant as aq
+
+    rng = np.random.default_rng(11)
+    res: dict = {}
+    for name, (m, n, k) in GEMM_SHAPES.items():
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
+        got = aq.gemm_i8(a, b, None, None, None, aq.ACC)
+        lib = torch._int_mm(a, b.t())
+        if not torch.equal(got, lib):
+            raise AssertionError(f"gemm_i8 {name}: int32 accumulator differs from torch._int_mm")
+        ms = graph_ms(lambda: aq.gemm_i8(a, b, None, None, None, aq.ACC))
+        lib_ms = graph_ms(lambda: torch._int_mm(a, b.t()))
+        ms_bound, by = bound(m * k + n * k + 4 * m * n, int8_ops=2 * m * n * k)
+        res[name] = dict(shape=(m, n, k), ms=ms, int_mm_ms=lib_ms, bound_ms=ms_bound,
+                         bound_by=by, peak_share=ms_bound / ms)
+    # every tile of GEMM_TILES at six shapes, whatever the plan would take
+    from clip_tpu_torch.ops import _cuda
+
+    for name in ("h14_up", "h14_down", "b32_b256_qkv", "b32_b256_o", "b32_text_qkv",
+                 "l14_336_b1_o") if hasattr(aq, "GEMM_TILES") else ():
+        m, n, k = GEMM_SHAPES[name]
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
+        out = torch.empty(m, n, dtype=torch.int32, device="cuda")
+
+        def forced(tile, a=a, b=b, out=out, m=m, n=n, k=k):
+            _cuda.check(_cuda.lib().ctt_gemm_i8(a.data_ptr(), b.data_ptr(), m, n, k, None, None,
+                                                None, None, out.data_ptr(), aq.ACC, k, tile,
+                                                _cuda.stream(a)), "ctt_gemm_i8")
+
+        res[name]["tiles_ms"] = {f"{64 * wg}x{bn}": graph_ms(lambda t=t: forced(t))
+                                 for t, (wg, bn) in enumerate(aq.GEMM_TILES)}
+        res[name]["plan_tile"] = aq.gemm_plan(m, n)
+    m, n, k, g = 8 * 584, 768, 768, 256
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
+    sx = torch.from_numpy(rng.uniform(0.005, 0.02, (m, k // g)).astype(np.float32)).cuda()
+    ws = torch.from_numpy(rng.uniform(0.005, 0.02, n).astype(np.float32)).cuda()
+    x = torch.randn(m, n, device="cuda").bfloat16()
+    ms_bound, by = bound(m * k + n * k + 4 * m * (k // g) + 4 * n + 2 * m * n * 2,
+                         int8_ops=2 * m * n * k)
+    res["b16_384_b8_o_grouped"] = dict(
+        shape=(m, n, k), group=g, bound_ms=ms_bound, bound_by=by,
+        ms=graph_ms(lambda: aq.gemm_i8(a, b, sx, ws, None, aq.GROUPED, resid=x, group=g)),
+        int_mm_ms=graph_ms(lambda: torch._int_mm(a, b.t())))
+    return res
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, bf16_flops: float = 0.0) -> tuple[float, str]:
@@ -516,8 +639,9 @@ def _proj(rows: int) -> str:
 def layer_launches(attn: str, mlp: str, rows: int) -> dict:
     """Launches of the ``PATH_WRAPPERS`` one layer over ``rows`` rows implies,
     by the route of its attention and MLP halves.  The block chains launch
-    ``lnq`` themselves, and ``mlp_gq`` launches ``gemm_gq`` and ``w8a8_pre``,
-    so those count too."""
+    ``lnq`` themselves, ``mlp_lnq`` and ``mlp_lnq_stream`` launch
+    ``ctt_gemm_gq`` (counted in ``gemm_gq``), and ``mlp_gq`` launches
+    ``gemm_gq`` and ``w8a8_pre``, so those count too."""
     n = dict.fromkeys(PATH_WRAPPERS, 0)
     steps = {"block": ["attn_block", "lnq"],
              "staged": ["lnq", "w8a8_pre", "mha_qkv", _proj(rows)],
@@ -526,9 +650,9 @@ def layer_launches(attn: str, mlp: str, rows: int) -> dict:
              "i8": ["lnq", "gemm_gq", "mha_qkv_i8", _proj(rows)],
              "stream": ["attn_block_stream", "lnq"],
              "dense": ["mha_qkv"]}[attn]
-    steps += {"block": ["mlp_lnq", "lnq"], "staged": ["lnq", "gemm_gq"],
-              "gq": ["mlp_gq", "gemm_gq", "w8a8_pre"], "stream": ["mlp_lnq_stream", "lnq"],
-              "dense": []}[mlp]
+    steps += {"block": ["mlp_lnq", "lnq", "gemm_gq"], "staged": ["lnq", "gemm_gq"],
+              "gq": ["mlp_gq", "gemm_gq", "w8a8_pre"],
+              "stream": ["mlp_lnq_stream", "lnq", "gemm_gq"], "dense": []}[mlp]
     for w in steps:
         n[w] += 1
     return n
@@ -624,6 +748,7 @@ def run_path(name: str, path: str, engine_kw: dict, drives: dict) -> dict:
         expect = expected_launches(eng, calls)
         assert launches == expect, f"{name} {label}: launches {launches}, expected {expect}"
         res["launches"][label], res["expect"][label] = launches, expect
+        res.setdefault("gemm_i8_launches", {})[label] = ops.launches()["gemm_i8"]
         for tower in ("image", "text"):
             if tower in got[label]:
                 emb = got[label][tower]
@@ -792,6 +917,9 @@ def check_staged_kernels(device) -> dict:
     gq = aq.gemm_gq(c_h14, s_h14, up8, upws, upb, "gelu_quick")
     gq_p = aq.gemm_gq_plain(c_h14, s_h14, up8, upws, upb, "gelu_quick")
     out["gemm_gq_h14_mismatch"] = codes_close("gemm_gq h14", *gq, *gq_p, 1e-5)
+    chain = aq.requant(aq.gemm_i8(c_h14, up8, s_h14, upws, upb, aq.GELU_QUICK))
+    expect(torch.equal(gq[0], chain[0]) and torch.equal(gq[1], chain[1]),
+           "gemm_gq h14: not bit-equal to requant(gemm_i8(...))")
     c2_h14, s2_h14 = gq
     out["args"]["gemm_gq_h14"] = (c_h14, s_h14, up8, upws, upb, "gelu_quick")
     c_b32, s_b32 = aq.lnq(x_bf16(64 * 50, 768), vec(rng, 768, device, 1.0, 0.1),
@@ -801,6 +929,9 @@ def check_staged_kernels(device) -> dict:
     gq = aq.gemm_gq(c_b32, s_b32, qw8, qws, qb, "none")
     gq_p = aq.gemm_gq_plain(c_b32, s_b32, qw8, qws, qb, "none")
     out["gemm_gq_b32_none_mismatch"] = codes_close("gemm_gq b32 none", *gq, *gq_p, 1e-6)
+    chain = aq.requant(aq.gemm_i8(c_b32, qw8, s_b32, qws, qb, aq.BIAS_F32))
+    expect(torch.equal(gq[0], chain[0]) and torch.equal(gq[1], chain[1]),
+           "gemm_gq b32 none: not bit-equal to requant(gemm_i8(...))")
     out["args"]["gemm_gq_b32_none"] = (c_b32, s_b32, qw8, qws, qb, "none")
     # w8a8_pre: ViT-H/14's down GEMM (over the gemm_gq codes) and
     # ViT-L/14-336's qkv GEMM; the int32 accumulator and the rescale are
@@ -960,6 +1091,9 @@ def check_stream_kernels(device) -> dict:
     y = aq.gemm_i8(c1, wt["up8"], s1, wt["upws"], wt["upb"], aq.GELU_QUICK)
     c2, s2 = aq.requant(y, group=640)
     codes_close("requant_group640", c2, s2, *aq.requant_plain(y, group=640), 1e-6)
+    gc, gs = aq._gemm_gq(c1, s1, wt["up8"], wt["upws"], wt["upb"], "gelu_quick", 640)
+    equal("gemm_gq chunks of 640 vs requant(gemm_i8(...))", gc, c2)
+    equal("gemm_gq chunks of 640 scales", gs, s2)
     gargs = (c2, wt["dn8"], s2, wt["dnws"], wt["dnb"], aq.GROUPED)
     equal("gemm_i8 grouped 8 x 640", aq.gemm_i8(*gargs, resid=x, group=640),
           aq.gemm_i8_plain(*gargs, resid=x, group=640))
@@ -1420,6 +1554,7 @@ def timing(device, chk: dict, engines: dict) -> dict:
             "gemm_up_gelu": graph_ms(lambda: aq.gemm_i8(codes, up8, sx, upws, upb,
                                                         aq.GELU_QUICK)),
             "requant_up": graph_ms(lambda: aq.requant(y)),
+            "gemm_gq_up": graph_ms(lambda: aq.gemm_gq(codes, sx, up8, upws, upb)),
             "gemm_down_resid": graph_ms(lambda: aq.gemm_i8(c3, dn8, s3, dnws, dnb, aq.RESID,
                                                            resid=x2)),
         }
@@ -1491,6 +1626,81 @@ def timing(device, chk: dict, engines: dict) -> dict:
     return res
 
 
+# gemm_gq phases (csrc/gemm_gq.cu GQ_PHASE): the spans between timestamps
+GQ_PHASES = ("first_stage", "mainloop", "act", "row_maxima", "cluster_meet", "scales", "codes",
+             "cluster_exit")
+# name -> (rows, N, K, requant group): ViT-H/14's up GEMM (the full row and
+# 8 chunks) and ViT-B/32's at B = 256 and 64
+GQ_PHASE_SHAPES = {"h14": (16896, 5120, 1280, 5120), "h14_chunks8": (16896, 5120, 1280, 640),
+                   "b32_b256": (12800, 3072, 768, 3072), "b32_b64": (3200, 3072, 768, 3072)}
+
+
+def gemm_gq_phases() -> dict:
+    """Where a ``ctt_gemm_gq`` block's time goes: ``gemm_gq.cu`` built once
+    more with ``-DCTT_GQ_PHASES`` (a %globaltimer stamp per phase and block),
+    run at ``GQ_PHASE_SHAPES`` with gelu_quick; the mean microseconds of each
+    phase, a block's lifetime, how many blocks were alive on average, and
+    the kernel's span."""
+    import ctypes
+
+    import torch
+
+    from clip_tpu_torch.ops import _cuda
+    from clip_tpu_torch.ops import actquant as aq
+
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "libgq_phases.so")
+        subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                        "-O3", "-Xcompiler", "-fPIC", "-shared", "-DCTT_GQ_PHASES", "-o", so,
+                        str(_cuda.SRC_DIR / "gemm_gq.cu")],
+                       capture_output=True, text=True, timeout=600, check=True)
+        lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ctt_gemm_gq.argtypes = [p, p, i, i, i, p, p, p, p, p, i, i, i, i, p]
+    lib.ctt_gemm_gq_phases_to.argtypes = [p]
+    rng = np.random.default_rng(14)
+    out = {}
+    for name, (m, n, k, group) in GQ_PHASE_SHAPES.items():
+        cs, cpb = aq.gq_plan(group)
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        b = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
+        sx = torch.from_numpy(rng.uniform(0.001, 0.01, m).astype(np.float32)).cuda()
+        ws = torch.from_numpy(rng.uniform(0.001, 0.01, n).astype(np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(0, 0.05, n).astype(np.float32)).cuda()
+        codes = torch.empty(m, n, dtype=torch.int8, device="cuda")
+        scales = torch.empty(m, n // group, device="cuda")
+        blocks = (n // group) * cs * -(-m // aq.GQ_ROWS)
+        stamps = torch.zeros(blocks * 9, dtype=torch.int64, device="cuda")
+        _cuda.check(lib.ctt_gemm_gq_phases_to(stamps.data_ptr()), "ctt_gemm_gq_phases_to")
+        for _ in range(3):  # the last run's stamps stay
+            _cuda.check(lib.ctt_gemm_gq(a.data_ptr(), b.data_ptr(), m, n, k, sx.data_ptr(),
+                                        ws.data_ptr(), bias.data_ptr(), codes.data_ptr(),
+                                        scales.data_ptr(), aq.GELU_QUICK, group, cs, cpb,
+                                        _cuda.stream(a)), "ctt_gemm_gq")
+        torch.cuda.synchronize()
+        t = stamps.view(blocks, 9).cpu().numpy().astype(np.float64) / 1e3
+        life = t[:, 8] - t[:, 0]
+        span = t[:, 8].max() - t[:, 0].min()
+        out[name] = dict(cluster=cs, columns=cpb, blocks=blocks, span_us=float(span),
+                         block_life_us=float(life.mean()),
+                         blocks_alive=float(life.sum() / span),
+                         phase_us={ph: float(d) for ph, d in zip(GQ_PHASES,
+                                                                 np.diff(t, axis=1).mean(0))})
+    return out
+
+
+def gemm_only() -> int:
+    """``--gemm-yardsticks``: build the kernels of the ``clip_tpu_torch`` next
+    to this script and print :func:`gemm_yardsticks` as one JSON line (how
+    two versions of the GEMM are compared in one call: a copy of this script
+    beside each package)."""
+    from clip_tpu_torch.ops import _cuda
+
+    _cuda.lib()
+    say(json.dumps({"card": nvidia_smi(), "gemm_yardsticks": gemm_yardsticks()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1498,7 +1708,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--gemm-yardsticks"]:
+        return gemm_only()
+    if sys.argv[1:] == ["--gemm-gq-phases"]:
+        say(json.dumps({"card": nvidia_smi(), "gemm_gq_phases": gemm_gq_phases()}))
+        return 0
     from clip_tpu_torch.ops import _cuda
+    from clip_tpu_torch.ops import actquant as aq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1528,7 +1744,8 @@ def main() -> int:
         _cuda.lib()
         say("[ptxas]\n" + info.ptxas)
         phase_line("build", t0, nvcc_seconds=round(info.seconds, 2), nvcc_calls=info.nvcc_calls,
-                   tensor_core_instructions=tensor_core_counts())
+                   tensor_core_instructions=tensor_core_counts(),
+                   gemm_launch_info=gemm_launch_info())
 
         t0 = time.perf_counter()
         chk = check_kernels(device)
@@ -1558,6 +1775,11 @@ def main() -> int:
                        plain_s=round(p["plain_s"], 2),
                        **{k: v for k, v in p.items()
                           if k.endswith(("cos", "zsl", "plain", "max_diff"))})
+    # the q4_0 main path's block chains launch ctt_gemm_i8 for qkv and o in
+    # each attention block and for the down GEMM of each MLP block
+    main = paths["q4_0"]["launches"]["main"]
+    n_i8 = paths["q4_0"]["gemm_i8_launches"]["main"]
+    assert n_i8 == 2 * main["attn_block"] + main["mlp_lnq"] > 0, f"q4_0: gemm_i8 launches {n_i8}"
     engines = {n: p.pop("engine") for n, p in paths.items()}
     for name in ("q5_1", "q8_0", "b32_up_gq"):
         del engines[name]
@@ -1590,7 +1812,21 @@ def main() -> int:
     sst = stream_timing(sck, engines)
     phase_line("stream_timing", t0, card=smi, **sst)
 
+    t0 = time.perf_counter()
+    gy = gemm_yardsticks()
+    q = GEMM_SHAPES["b32_b256_qkv"]
+    a = torch.from_numpy(np.random.default_rng(12).integers(-127, 128, q[::2], dtype=np.int8))
+    b = torch.from_numpy(np.random.default_rng(13).integers(-127, 128, q[1:], dtype=np.int8))
+    a, b = a.cuda(), b.cuda()
+    gy["b32_b256_qkv"]["plain_ms"] = graph_ms(
+        lambda: aq.gemm_i8_plain(a, b, None, None, None, aq.ACC), iters=5)
+    gy["b32_b256_qkv"]["max_abs_err"] = float(
+        (aq.gemm_i8(a, b, None, None, None, aq.ACC)
+         - aq.gemm_i8_plain(a, b, None, None, None, aq.ACC)).abs().max())
+    phase_line("gemm_yardsticks", t0, card=smi, **gy)
+
     bounds = {**kernel_bounds(chk), **staged_bounds(schk), **stream_bounds(sck)}
+    bounds["gemm_i8"] = (gy["b32_b256_qkv"]["bound_ms"], gy["b32_b256_qkv"]["bound_by"])
     v = tm["vision"]
 
     def row(name, source, replaces, launches, ms, plain_ms, err, bound_key, library_ms=None):
@@ -1633,7 +1869,12 @@ def main() -> int:
         row("lnq", "actquant.cu", "actquant_pallas.py:71",
             main_launches("h14_staged_mlp", "lnq"), st["lnq_h14_ms"], st["lnq_h14_plain_ms"],
             schk["lnq_h14_err"], "lnq"),
-        row("gemm_gq", "actquant.cu", "actquant_pallas.py:172",
+        # 6a: the int8 GEMM alone (ACC) at ViT-B/32's qkv at B = 256; its
+        # launches are the q4_0 main path's (qkv, o and down GEMMs)
+        row("gemm_i8", "actquant.cu", "actquant_pallas.py:172", n_i8,
+            gy["b32_b256_qkv"]["ms"], gy["b32_b256_qkv"]["plain_ms"],
+            gy["b32_b256_qkv"]["max_abs_err"], "gemm_i8", gy["b32_b256_qkv"]["int_mm_ms"]),
+        row("gemm_gq", "gemm_gq.cu", "actquant_pallas.py:172",
             main_launches("h14_staged_mlp", "gemm_gq"), st["gemm_gq_h14_ms"],
             st["gemm_gq_h14_plain_ms"], schk["gemm_gq_h14_err"], "gemm_gq"),
         row("mlp_gq", "actquant.cu", "actquant_pallas.py:296",

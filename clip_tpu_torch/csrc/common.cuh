@@ -65,6 +65,21 @@ __device__ __forceinline__ int8_t quant_code(float y, float sx) {
   return (int8_t)fminf(fmaxf(q, -127.f), 127.f);
 }
 
+// quant_code with the quotient from a reciprocal rc = __frcp_rn(sx) computed
+// once per row instead of a division per element: q = y * rc, then two
+// correction steps q += (y - q * sx) * rc, the remainder exact in one FMA.
+// With rc the correctly rounded reciprocal and q within an ulp of y / sx
+// after the first step, the second gives the correctly rounded quotient
+// (Markstein's theorem), the value __fdiv_rn gives, so the code equals
+// quant_code's; where the quotient underflows it is far below the 0.5 at
+// which rintf could differ.
+__device__ __forceinline__ int8_t quant_code_rcp(float y, float sx, float rc) {
+  float q = __fmul_rn(y, rc);
+  q = __fmaf_rn(__fmaf_rn(-q, sx, y), rc, q);
+  q = __fmaf_rn(__fmaf_rn(-q, sx, y), rc, q);
+  return (int8_t)fminf(fmaxf(rintf(q), -127.f), 127.f);
+}
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }

@@ -43,7 +43,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ctt_lnq": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ctt_requant": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ctt_gemm_i8": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "ctt_gemm_i8": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ctt_gemm_i8_smem": (_I,),
+    "ctt_gemm_gq": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ctt_gemm_gq_info": (_I, _I, _P),
     "ctt_attention": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ctt_attention_i8": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ctt_qmatmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -88,7 +91,8 @@ def _nvcc() -> str:
 
 def _ptxas_summary(stderr: str) -> str:
     keep = [ln.strip() for ln in stderr.splitlines()
-            if "Compiling entry function" in ln or "Used " in ln or "spill" in ln]
+            if "Compiling entry function" in ln or "Used " in ln or "spill" in ln
+            or "wgmma" in ln]
     return "\n".join(keep)
 
 

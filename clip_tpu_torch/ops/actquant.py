@@ -4,7 +4,7 @@
 * :func:`mlp_lnq` -- the whole MLP block (``mlp_lnq_pallas:362``);
 * :func:`lnq` -- LN + row int8 quant (``lnq_pallas:71``);
 * :func:`gemm_gq` -- int8 GEMM -> rescale + bias -> gelu or none -> row
-  requant (``gemm_gq_pallas:172``);
+  requant (``gemm_gq_pallas:172``), one kernel (``ctt_gemm_gq``);
 * :func:`mlp_gq` -- the MLP from pre-quantized codes, no down bias
   (``mlp_gq_pallas:296``);
 * :func:`w8a8_pre` -- the int8 GEMM over pre-quantized codes with the
@@ -24,9 +24,11 @@ only so that the port takes the reference's route (which fixes the function
 computed).  No CUDA launch decision depends on them.
 
 Every wrapper takes the plain PyTorch version for a tensor on the CPU and
-launches its CUDA kernel (``csrc/actquant.cu``) for a tensor on a card; there
-it takes bf16 activations only and raises on anything else.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+launches its CUDA kernel (``csrc/actquant.cu``, ``csrc/gemm_gq.cu``) for a
+tensor on a card; there it takes bf16 activations only and raises on
+anything else.  Each wrapper counts its launches in ``<wrapper>.launches``.  Which tile an int8 GEMM
+launch takes, and how ``ctt_gemm_gq`` spans a row with a cluster of blocks,
+are plain Python (:func:`gemm_plan`, :func:`gq_plan`).
 
 The plain versions repeat the TPU kernels' arithmetic in the same order:
 int8 products accumulate exactly (in float64, which holds every int32 sum
@@ -41,10 +43,10 @@ import torch
 from . import _cuda
 from .nn import gelu_quick, gelu_tanh, layernorm_f32, quant_rows
 
-__all__ = ["ACC", "BIAS", "BIAS_F32", "GELU_QUICK", "GELU_TANH", "GROUPED", "PRE", "RESID",
-           "actq", "actq_plain", "fusable_width", "gemm_gq", "gemm_gq_plain", "gemm_i8",
-           "gemm_i8_plain", "lnq", "lnq_plain", "mlp_fusable", "mlp_gq", "mlp_gq_plain",
-           "mlp_lnq", "mlp_lnq_plain", "mlp_lnq_stream", "mlp_lnq_stream_plain",
+__all__ = ["ACC", "BIAS", "BIAS_F32", "GELU_QUICK", "GELU_TANH", "GEMM_TILES", "GROUPED", "PRE",
+           "RESID", "actq", "actq_plain", "fusable_width", "gemm_gq", "gemm_gq_plain", "gemm_i8",
+           "gemm_i8_plain", "gemm_plan", "gq_plan", "lnq", "lnq_plain", "mlp_fusable", "mlp_gq",
+           "mlp_gq_plain", "mlp_lnq", "mlp_lnq_plain", "mlp_lnq_stream", "mlp_lnq_stream_plain",
            "mlp_stream_fusable", "requant", "requant_plain", "w8a8_pre", "w8a8_pre_plain"]
 
 # epilogue modes of the int8 GEMM (csrc/actquant.cu GemmMode)
@@ -105,6 +107,61 @@ def mlp_stream_fusable(h: int, n4h: int) -> bool:
     can run this width."""
     return (fusable_width(h) and fusable_width(n4h)
             and _mlp_stream_plan(8, h, n4h) is not None)
+
+
+# -- launch plans ------------------------------------------------------------
+# Plain Python, so that the CPU tests hold them against every shape the
+# shipped configurations reach; the kernels take what they are given.
+
+#: streaming multiprocessors of an H100 SXM
+N_SMS = 132
+#: tiles of ``ctt_gemm_i8`` (``csrc/actquant.cu`` ``Tile``), by preference:
+#: (consumer warpgroups, columns); a block owns 64 x warpgroups rows
+GEMM_TILES = ((2, 128), (1, 128), (1, 64), (1, 32))
+#: ``ctt_gemm_gq`` (``csrc/gemm_gq.cu``): the columns a block may own, its
+#: rows, and the largest cluster (16: the non-portable size, which H100
+#: allows)
+GQ_COLUMNS, GQ_ROWS, GQ_MAX_CLUSTER = (320, 256, 192, 128), 128, 16
+
+
+def gemm_plan(m: int, n: int, grouped: bool = False) -> int:
+    """The tile (an index into :data:`GEMM_TILES`) of an ``[m, K] x [n, K]``
+    int8 GEMM: the largest whose grid gives every SM a block, else the
+    narrowest (most blocks).  The grouped epilogue keeps an f32 sum beside
+    the accumulators, which two warpgroups' registers do not hold, so it
+    takes the one-warpgroup tiles.  No split of K: the row counts of the
+    shipped shapes reach 132 blocks with the narrow tiles alone."""
+    for i, (wg, bn) in enumerate(GEMM_TILES):
+        if grouped and wg == 2:
+            continue
+        if -(-m // (64 * wg)) * -(-n // bn) >= N_SMS:
+            return i
+    return len(GEMM_TILES) - 1
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def gq_plan(group: int) -> tuple[int, int]:
+    """(cluster size, columns a block) with which ``ctt_gemm_gq`` spans a
+    requant group of ``group`` columns: one block where one holds the group,
+    else the widest block (the fewest bytes of L2 per product) whose
+    power-of-two cluster of at most 16 spans the group with every block
+    owning columns of it; where none does, the plan that computes the
+    fewest columns past the group.  Raises past 16 x 320 = 5120 columns."""
+    for cpb in sorted(GQ_COLUMNS):
+        if cpb >= group:
+            return 1, cpb
+    plans = [(_pow2_at_least(-(-group // cpb)), cpb) for cpb in GQ_COLUMNS]
+    plans = [(cs, cpb) for cs, cpb in plans if cs <= GQ_MAX_CLUSTER]
+    if not plans:
+        raise ValueError(f"gemm_gq: a group of {group} columns is wider than "
+                         f"{GQ_MAX_CLUSTER * max(GQ_COLUMNS)}")
+    for cs, cpb in plans:
+        if (cs - 1) * cpb < group:
+            return cs, cpb
+    return min(plans, key=lambda p: (p[0] * p[1], -p[1]))
 
 
 # -- plain versions ----------------------------------------------------------
@@ -315,10 +372,18 @@ _GEMM_OUT = {ACC: torch.int32, BIAS: torch.bfloat16, GELU_QUICK: torch.float32,
              BIAS_F32: torch.float32, GROUPED: torch.bfloat16}
 
 
+def _require_tma(t, name: str) -> None:
+    """TMA reads the int8 operands: base address and row stride 16-byte
+    aligned."""
+    if t.data_ptr() % 16 or (t.dim() == 2 and t.stride(0) % 16):
+        raise ValueError(f"{name}: base address and row stride must be 16-byte aligned (TMA)")
+
+
 def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16,
             group: int | None = None):
-    """int8 GEMM with epilogue (``ctt_gemm_i8``): ``a [M, K]``, ``b [N, K]``,
-    K % 64 == 0, N % 8 == 0.  ``out_dtype`` is the rounding of the BIAS,
+    """int8 GEMM with epilogue (``ctt_gemm_i8``, on the tile of
+    :func:`gemm_plan`): ``a [M, K]``, ``b [N, K]``, K % 64 == 0, N % 8 ==
+    0, both 16-byte aligned.  ``out_dtype`` is the rounding of the BIAS,
     RESID, PRE and GROUPED epilogues: bfloat16 on a card.  ``GROUPED`` takes
     ``sx [M, K / group]`` with ``group`` a multiple of 64, and an optional
     bias and residual."""
@@ -334,8 +399,10 @@ def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16,
     dev = a.device
     _cuda.require(a, "a", torch.int8, (m, k), dev)
     _cuda.require(b, "b", torch.int8, (n, k), dev)
-    if k % 64 or n % 8:
-        raise ValueError(f"gemm_i8: K={k} must be a multiple of 64 and N={n} of 8")
+    if k % 64 or k == 0 or n % 8:
+        raise ValueError(f"gemm_i8: K={k} must be a positive multiple of 64 and N={n} of 8")
+    _require_tma(a, "a")
+    _require_tma(b, "b")
     if mode == GROUPED:
         if group is None or group % 64 or k % group:
             raise ValueError(f"gemm_i8: groups of {group} must divide K={k} and be a "
@@ -354,17 +421,46 @@ def gemm_i8(a, b, sx, ws, bias, mode: int, resid=None, out_dtype=torch.bfloat16,
         a.data_ptr(), b.data_ptr(), m, n, k, _cuda.ptr(sx), _cuda.ptr(ws),
         _cuda.ptr(bias) if mode not in (ACC, PRE) else None,
         _cuda.ptr(resid) if mode in (RESID, GROUPED) else None, out.data_ptr(), mode,
-        group or k, _cuda.stream(a)), "ctt_gemm_i8")
+        group or k, gemm_plan(m, n, mode == GROUPED), _cuda.stream(a)), "ctt_gemm_i8")
     gemm_i8.launches += 1
     return out
+
+
+def _gemm_gq(codes, sx, w8, ws, bias, act: str, group: int):
+    """Launch ``ctt_gemm_gq``: ``act(codes . w8^T * sx * ws + bias)``
+    requantized per group of ``group`` columns -> (codes int8 ``[M, N]``,
+    scales f32 ``[M, N / group]``).  Counts in ``gemm_gq.launches``."""
+    m, k = codes.shape
+    n = w8.shape[0]
+    dev = codes.device
+    _cuda.require(codes, "codes", torch.int8, (m, k), dev)
+    _cuda.require(w8, "w8", torch.int8, (n, k), dev)
+    _cuda.require(sx, "sx", torch.float32, (m,), dev)
+    _cuda.require(ws, "ws", torch.float32, (n,), dev)
+    _cuda.require(bias, "bias", torch.float32, (n,), dev)
+    if k % 64 or k == 0 or group % 8 or n % group:
+        raise ValueError(f"gemm_gq: K={k} must be a positive multiple of 64, and groups of "
+                         f"{group} a multiple of 8 that divides N={n}")
+    _require_tma(codes, "codes")
+    _require_tma(w8, "w8")
+    cs, cpb = gq_plan(group)
+    out = torch.empty(m, n, dtype=torch.int8, device=dev)
+    scales = torch.empty(m, n // group, dtype=torch.float32, device=dev)
+    _cuda.check(_cuda.lib().ctt_gemm_gq(
+        codes.data_ptr(), w8.data_ptr(), m, n, k, sx.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), scales.data_ptr(), _ACT_MODE[act], group, cs, cpb, _cuda.stream(codes)),
+        "ctt_gemm_gq")
+    gemm_gq.launches += 1
+    return out, scales
 
 
 def mlp_lnq(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
             act: str = "gelu_quick"):
     """Whole MLP block with residual: ``x [rows, H]`` -> ``x + mlp(ln(x))``.
 
-    On a card: ``ctt_lnq`` -> up ``ctt_gemm_i8`` (bias + gelu, f32 out) ->
-    ``ctt_requant`` -> down ``ctt_gemm_i8`` (bias + residual, bf16 out)."""
+    On a card: ``ctt_lnq`` -> ``ctt_gemm_gq`` (up GEMM, bias, act and the
+    full-row requant in one kernel: no f32 row in device memory) -> down
+    ``ctt_gemm_i8`` (bias + residual, bf16 out)."""
     if act not in _ACT_MODE:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
@@ -374,9 +470,8 @@ def mlp_lnq(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, *, eps: float,
     _cuda.require(up8, "up8", torch.int8, (n, h), x.device)
     _cuda.require(dn8, "dn8", torch.int8, (h, n), x.device)
     c1, s1 = lnq(x, lnw, lnb, eps)
-    y = gemm_i8(c1, up8, s1, upws, upb, _ACT_MODE[act])
-    c2, s2 = requant(y)
-    out = gemm_i8(c2, dn8, s2, dnws, dnb, RESID, resid=x)
+    c2, s2 = _gemm_gq(c1, s1, up8, upws, upb, act, n)
+    out = gemm_i8(c2, dn8, s2.reshape(-1), dnws, dnb, RESID, resid=x)
     mlp_lnq.launches += 1
     return out
 
@@ -385,12 +480,11 @@ def mlp_lnq_stream(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb=None, *, eps: flo
                    act: str = "gelu_quick", residual: bool = False, exact: bool = True,
                    n_chunks: int | None = None):
     """Counterpart of ``mlp_lnq_stream_pallas``: :func:`mlp_lnq_stream_plain`
-    on the card.  ``ctt_lnq`` -> up ``ctt_gemm_i8`` (bias + act, f32 out) ->
-    ``ctt_requant`` over the full row (``exact``) or per chunk of 4H / c ->
-    down ``ctt_gemm_i8`` with the grouped epilogue.  One chunk with the
-    residual is :func:`mlp_lnq`'s chain, so it ends in that residual
-    epilogue, which the grouped one equals bit for bit with one group but
-    with half the registers.
+    on the card.  ``ctt_lnq`` -> ``ctt_gemm_gq`` (up GEMM, bias, act and the
+    requant over the full row for ``exact``, or per chunk of 4H / c, on
+    chip) -> down ``ctt_gemm_i8`` with the grouped epilogue.  One chunk with
+    the residual is :func:`mlp_lnq`'s chain, so it ends in that residual
+    epilogue, which the grouped one equals bit for bit with one group.
 
     The TPU kernel streams the weight columns through VMEM in chunks; here
     every GEMM streams its weights from device memory anyway, so only the
@@ -410,12 +504,10 @@ def mlp_lnq_stream(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb=None, *, eps: flo
     _cuda.require(dn8, "dn8", torch.int8, (h, n), x.device)
     c = _stream_chunks(rows, h, n, exact, n_chunks)
     c1, s1 = lnq(x, lnw, lnb, eps)
-    y = gemm_i8(c1, up8, s1, upws, upb, _ACT_MODE[act])
+    c2, s2 = _gemm_gq(c1, s1, up8, upws, upb, act, n // c)
     if c == 1 and residual:
-        c2, s2 = requant(y)
-        out = gemm_i8(c2, dn8, s2, dnws, dnb, RESID, resid=x)
+        out = gemm_i8(c2, dn8, s2.reshape(-1), dnws, dnb, RESID, resid=x)
     else:
-        c2, s2 = requant(y, group=n // c)
         out = gemm_i8(c2, dn8, s2, dnws, dnb, GROUPED, resid=x if residual else None,
                       group=n // c)
     mlp_lnq_stream.launches += 1
@@ -439,16 +531,17 @@ def gemm_gq(codes, sx, w8, ws, bias, act: str = "gelu_quick"):
     ``act`` -> row int8 requant over the full row: (codes ``[M, N]``, scales
     ``[M]``).
 
-    On a card: ``ctt_gemm_i8`` (GELU or f32 bias epilogue, f32 out) ->
-    ``ctt_requant``.  The requant's row amax spans all N columns, more than
-    one GEMM tile holds, so the f32 row goes through device memory."""
+    On a card: one ``ctt_gemm_gq`` launch.  The row amax spans all N
+    columns, more than one block holds, so a cluster of blocks along N spans
+    the row (:func:`gq_plan`): each keeps its f32 act(y) in shared memory,
+    and the blocks meet their row maxima through distributed shared memory.
+    Codes and scales equal ``requant(gemm_i8(...))`` bit for bit."""
     if act not in _ACT_MODE:
         raise ValueError(f"unknown act {act!r}")
     if codes.device.type == "cpu":
         return gemm_gq_plain(codes, sx, w8, ws, bias, act)
-    out = requant(gemm_i8(codes, w8, sx, ws, bias, _ACT_MODE[act]))
-    gemm_gq.launches += 1
-    return out
+    out, scales = _gemm_gq(codes, sx, w8, ws, bias, act, w8.shape[0])
+    return out, scales.reshape(-1)
 
 
 def mlp_gq(codes, sx, up8, upws, upb, dn8, dnws, *, act: str = "gelu_quick",
@@ -456,8 +549,8 @@ def mlp_gq(codes, sx, up8, upws, upb, dn8, dnws, *, act: str = "gelu_quick",
     """Counterpart of ``mlp_gq_pallas``: the MLP from pre-quantized codes
     ``[M, H]`` -> ``[M, H]`` in ``out_dtype``, without the down bias.
 
-    On a card: :func:`gemm_gq` (``ctt_gemm_i8`` GELU + ``ctt_requant``) ->
-    down ``ctt_gemm_i8`` with the PRE epilogue."""
+    On a card: :func:`gemm_gq` (``ctt_gemm_gq``) -> down ``ctt_gemm_i8``
+    with the PRE epilogue."""
     if act not in _ACT_MODE:
         raise ValueError(f"unknown act {act!r}")
     if codes.device.type == "cpu":

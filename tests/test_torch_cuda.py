@@ -619,3 +619,203 @@ def test_stream_routes_match_plain(card, row):
     assert ops.launches()[row] == 1
     ref = transformer.block(x.float(), lp, kernels=False, **kw)
     assert out.dtype == torch.bfloat16 and _cos(out, ref) > 0.999
+
+
+# -- the wgmma GEMMs (ctt_gemm_i8 on every tile, ctt_gemm_gq) ---------------------
+
+def _i8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+
+
+def _gemm_args(rng, m, n, k, mode, dev):
+    a, b = _i8(rng, (m, k), dev), _i8(rng, (n, k), dev)
+    sx, ws = _vec(rng, m, dev, 0.01, 0.001), _vec(rng, n, dev, 0.001, 1e-4)
+    bias = _vec(rng, n, dev)
+    resid = _x(rng, (m, n), dev) if mode == aq.RESID else None
+    return a, b, sx, ws, bias, resid
+
+
+def _launch_tile(tile, a, b, sx, ws, bias, mode, resid=None, group=None):
+    """``ctt_gemm_i8`` on a given tile of ``GEMM_TILES``, whatever the plan
+    would choose."""
+    from clip_tpu_torch.ops import _cuda
+
+    m, k = a.shape
+    n = b.shape[0]
+    out = torch.empty(m, n, dtype=aq._GEMM_OUT[mode], device=a.device)
+    _cuda.check(_cuda.lib().ctt_gemm_i8(
+        a.data_ptr(), b.data_ptr(), m, n, k, _cuda.ptr(sx), _cuda.ptr(ws),
+        _cuda.ptr(bias) if mode not in (aq.ACC, aq.PRE) else None, _cuda.ptr(resid), out.data_ptr(),
+        mode, group or k, tile, _cuda.stream(a)), "ctt_gemm_i8")
+    return out
+
+
+_EXACT = [aq.ACC, aq.BIAS, aq.RESID, aq.PRE, aq.BIAS_F32]
+
+
+@pytest.mark.parametrize("tile", range(len(aq.GEMM_TILES)))
+@pytest.mark.parametrize("mode", _EXACT + [aq.GELU_QUICK, aq.GELU_TANH])
+def test_every_tile_matches_plain(card, tile, mode):
+    """Each tile of ``GEMM_TILES`` on a ragged shape (M, N fill no tile, K
+    ends in half a stage): bit-equal where ``test_gemm_i8_exact`` asks it,
+    the GELU modes to its tolerance."""
+    rng = np.random.default_rng(40 + tile)
+    a, b, sx, ws, bias, resid = _gemm_args(rng, 133, 264, 192, mode, card)
+    got = _launch_tile(tile, a, b, sx, ws, bias, mode, resid)
+    want = aq.gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid)
+    if mode in _EXACT:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 50, 133, 584, 4672])
+@pytest.mark.parametrize("n,k", [(136, 128), (264, 192), (776, 768), (2304, 1280), (128, 5120)])
+def test_gemm_i8_accumulator_at_plan_boundaries(card, m, n, k):
+    """The int32 accumulator, exact, at row counts that take every tile of
+    the plan, N not a multiple of any tile's width, K from 128 to 5120."""
+    rng = np.random.default_rng(41)
+    a, b = _i8(rng, (m, k), card), _i8(rng, (n, k), card)
+    assert torch.equal(aq.gemm_i8(a, b, None, None, None, aq.ACC),
+                       aq.gemm_i8_plain(a, b, None, None, None, aq.ACC))
+
+
+@pytest.mark.parametrize("m", [50, 584, 4672])
+@pytest.mark.parametrize("mode", _EXACT + [aq.GELU_QUICK, aq.GELU_TANH])
+def test_gemm_i8_epilogues_at_path_rows(card, m, mode):
+    rng = np.random.default_rng(42)
+    a, b, sx, ws, bias, resid = _gemm_args(rng, m, 776, 768, mode, card)
+    got = aq.gemm_i8(a, b, sx, ws, bias, mode, resid=resid)
+    want = aq.gemm_i8_plain(a, b, sx, ws, bias, mode, resid=resid)
+    if mode in _EXACT:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [50, 584, 4672])
+@pytest.mark.parametrize("k,group", [(1280, 64), (768, 256), (5120, 640)])
+def test_gemm_i8_grouped_at_path_rows(card, m, k, group):
+    """The grouped epilogue's flush (mid-stage for groups of 64), bit-equal
+    to its plain version on the tiles the plan takes at these rows."""
+    rng = np.random.default_rng(43)
+    n = 1280
+    a, b = _i8(rng, (m, k), card), _i8(rng, (n, k), card)
+    sx = torch.from_numpy(rng.uniform(0.005, 0.02, (m, k // group)).astype(np.float32)).to(card)
+    ws, bias, x = _vec(rng, n, card, 0.01, 0.001), _vec(rng, n, card), _x(rng, (m, n), card)
+    got = aq.gemm_i8(a, b, sx, ws, bias, aq.GROUPED, resid=x, group=group)
+    assert torch.equal(got, aq.gemm_i8_plain(a, b, sx, ws, bias, aq.GROUPED, resid=x,
+                                             group=group))
+
+
+def _chain(codes, sx, w8, ws, bias, act, group=None):
+    """The two-launch chain ``ctt_gemm_gq`` replaces."""
+    return aq.requant(aq.gemm_i8(codes, w8, sx, ws, bias, aq._ACT_MODE[act]), group=group)
+
+
+@pytest.mark.parametrize("act", ["gelu_quick", "gelu_tanh", "none"])
+@pytest.mark.parametrize("n", [2048, 3072, 4096, 5120, 264])
+@pytest.mark.parametrize("m", [1, 133])
+def test_gemm_gq_equals_the_chain(card, act, n, m):
+    """``ctt_gemm_gq`` (one launch, the full-row requant on chip) against
+    ``requant(gemm_i8(...))``: codes and scales bit for bit."""
+    rng = np.random.default_rng(44)
+    codes, sx = _codes(rng, m, 256, card)
+    w8, ws = _w8(rng, n, 256, card)
+    bias = _vec(rng, n, card)
+    aq.gemm_gq.launches = 0
+    oc, osx = aq.gemm_gq(codes, sx, w8, ws, bias, act)
+    assert aq.gemm_gq.launches == 1
+    cc, csx = _chain(codes, sx, w8, ws, bias, act)
+    assert torch.equal(osx, csx) and torch.equal(oc, cc)
+
+
+@pytest.mark.parametrize("n,c", [(5120, 8), (5120, 4), (3072, 4), (2048, 2)])
+def test_gemm_gq_chunks_equal_the_chain(card, n, c):
+    """The streamed MLP's per-chunk requant (groups of 4H / c) on chip,
+    against ``requant(gemm_i8(...), group=4H / c)``."""
+    rng = np.random.default_rng(45)
+    codes, sx = _codes(rng, 133, 1280, card)
+    w8, ws = _w8(rng, n, 1280, card)
+    bias = _vec(rng, n, card)
+    oc, osx = aq._gemm_gq(codes, sx, w8, ws, bias, "gelu_quick", n // c)
+    cc, csx = _chain(codes, sx, w8, ws, bias, "gelu_quick", group=n // c)
+    assert osx.shape == (133, c)
+    assert torch.equal(osx, csx) and torch.equal(oc, cc)
+
+
+@pytest.mark.parametrize("route", ["gemm_gq", "mlp_gq", "mlp_lnq", "stream_exact", "stream_chunks"])
+def test_mlp_routes_allocate_no_f32_row(card, route):
+    """No f32 ``[rows, 4H]`` tensor on the card: the routes' peak allocation
+    stays below the f32 intermediate alone, and no ``ctt_requant`` or f32
+    GEMM epilogue runs."""
+    from clip_tpu_torch import ops
+
+    rng = np.random.default_rng(46)
+    rows, h, f = 4096, 128, 1024
+    x = _x(rng, (rows, h), card)
+    up8, upws = _w8(rng, f, h, card)
+    dn8, dnws = _w8(rng, h, f, card)
+    lnw, lnb, upb, dnb = (_vec(rng, h, card, 1.0, 0.1), _vec(rng, h, card), _vec(rng, f, card),
+                          _vec(rng, h, card))
+    codes, sx = aq.lnq(x, lnw, lnb, 1e-5)
+    run = {"gemm_gq": lambda: aq.gemm_gq(codes, sx, up8, upws, upb),
+           "mlp_gq": lambda: aq.mlp_gq(codes, sx, up8, upws, upb, dn8, dnws),
+           "mlp_lnq": lambda: aq.mlp_lnq(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb, eps=1e-5),
+           "stream_exact": lambda: aq.mlp_lnq_stream(x, lnw, lnb, up8, upws, upb, dn8, dnws, dnb,
+                                                     eps=1e-5, residual=True),
+           "stream_chunks": lambda: aq.mlp_lnq_stream(x, lnw, lnb, up8, upws, upb, dn8, dnws,
+                                                      dnb, eps=1e-5, residual=True, exact=False,
+                                                      n_chunks=4)}[route]
+    run()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < rows * f * 4, (route, peak)
+    n = ops.launches()
+    assert n["gemm_gq"] == 1 and n["requant"] == 0, n
+    del out
+
+
+@pytest.mark.parametrize("cpb", aq.GQ_COLUMNS)
+def test_gemm_gq_every_block_width(card, cpb):
+    """``ctt_gemm_gq`` with each block width of ``GQ_COLUMNS``, whatever
+    the plan would choose, over a 1280-wide row (clusters of 4 to 16, some
+    blocks past the row's end): bit-equal to the two-launch chain."""
+    from clip_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(47)
+    m, k, n = 133, 256, 1280
+    codes, sx = _codes(rng, m, k, card)
+    w8, ws = _w8(rng, n, k, card)
+    bias = _vec(rng, n, card)
+    cs = aq._pow2_at_least(-(-n // cpb))
+    out = torch.empty(m, n, dtype=torch.int8, device=card)
+    scales = torch.empty(m, 1, dtype=torch.float32, device=card)
+    _cuda.check(_cuda.lib().ctt_gemm_gq(
+        codes.data_ptr(), w8.data_ptr(), m, n, k, sx.data_ptr(), ws.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), scales.data_ptr(), aq.GELU_QUICK, n, cs, cpb, _cuda.stream(codes)),
+        "ctt_gemm_gq")
+    cc, csx = _chain(codes, sx, w8, ws, bias, "gelu_quick")
+    assert torch.equal(scales.reshape(-1), csx) and torch.equal(out, cc)
+
+
+def test_gemm_gq_codes_at_rounding_ties(card):
+    """Small integer operands with unit scales and no bias make act(y) = y
+    the int32 product itself, so y / scale lands on or next to the .5 ties
+    of the round to int8 again and again: ``ctt_gemm_gq``'s quotients (a
+    reciprocal a row and two correction steps) must round exactly as the
+    chain's ``__fdiv_rn`` does."""
+    rng = np.random.default_rng(48)
+    m, k, n = 4096, 128, 2048
+    codes = torch.from_numpy(rng.integers(-3, 4, (m, k), dtype=np.int8)).to(card)
+    w8 = torch.from_numpy(rng.integers(-3, 4, (n, k), dtype=np.int8)).to(card)
+    ones_m = torch.ones(m, device=card)
+    ones_n, zeros_n = torch.ones(n, device=card), torch.zeros(n, device=card)
+    oc, osx = aq.gemm_gq(codes, ones_m, w8, ones_n, zeros_n, "none")
+    cc, csx = _chain(codes, ones_m, w8, ones_n, zeros_n, "none")
+    assert torch.equal(osx, csx) and torch.equal(oc, cc)
